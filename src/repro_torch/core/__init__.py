@@ -1,0 +1,21 @@
+"""GK Select's single-device main path in PyTorch.
+
+  exact_quantile / exact_quantile_rank / gk_select / gk_select_multi
+  full_sort_quantile / approx_quantile        the quickstart's baselines
+  local_sample_sketch / query_merged_sketch / sample_sketch_params
+  reset_sketch_sorts / sketch_sorts / record_sketch_sort
+"""
+from .sketch import (local_sample_sketch, query_merged_sketch,
+                     sample_sketch_params, reset_sketch_sorts, sketch_sorts,
+                     record_sketch_sort)
+from .select import (exact_quantile, exact_quantile_rank, gk_select,
+                     gk_select_multi, as_device_tensor)
+from .baselines import full_sort_quantile, approx_quantile
+from . import local_ops
+
+__all__ = [
+    "local_sample_sketch", "query_merged_sketch", "sample_sketch_params",
+    "reset_sketch_sorts", "sketch_sorts", "record_sketch_sort",
+    "exact_quantile", "exact_quantile_rank", "gk_select", "gk_select_multi",
+    "as_device_tensor", "full_sort_quantile", "approx_quantile", "local_ops",
+]
