@@ -23,8 +23,9 @@
 //   pass 2  (compact_kernel)   one read: every element at or beyond that bin
 //                              is appended to its band's row of a scratch
 //                              buffer through a block-aggregated cursor;
-//   sort    (bitonic_*)        each row sorted by key (tiles in shared
-//                              memory, the wide steps in device memory);
+//   sort    (bitonic_*)        each row sorted by key: tiles of 8192 keys
+//                              in registers, warp shuffles and shared memory,
+//                              the wide steps in device memory;
 //   emit    (emit_kernel)      the first cap keys of each row back to values,
 //                              sentinel padded.
 // Two full reads of the data.  On heavy ties the threshold bin can hold the
@@ -38,14 +39,10 @@ constexpr int BIN_BITS = 11;
 constexpr int NB = 1 << BIN_BITS;
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;
-#ifndef FS_SORT_TILE
-#define FS_SORT_TILE 4096
-#endif
-#ifndef FS_SORT_THREADS
-#define FS_SORT_THREADS 512
-#endif
-constexpr int SORT_TILE = FS_SORT_TILE;      // keys sorted in shared memory
-constexpr int SORT_THREADS = FS_SORT_THREADS;
+constexpr int SORT_THREADS = 512;
+constexpr int KPT = 16;                          // keys each sort thread holds
+constexpr int SORT_TILE = SORT_THREADS * KPT;    // keys one block sorts: 8192
+constexpr int WARP_SPAN = 32 * KPT;              // keys one warp holds
 constexpr int STEP_THREADS = 256;
 
 // ---------------------------------------------------------------------------
@@ -167,10 +164,11 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
       for (int u = 0; u < UNROLL; ++u) {
         const int64_t v = base + int64_t(u) * THREADS;
         if (v >= v1) continue;
+        const int64_t g0 = v * V::N;
+        const bool whole = g0 >= lo && g0 + V::N <= hi;
 #pragma unroll
         for (int e = 0; e < V::N; ++e) {
-          const int64_t g = v * V::N + e;
-          if (g < lo || g >= hi) continue;
+          if (!whole && (g0 + e < lo || g0 + e >= hi)) continue;
           const Raw r = vec[u].r[e];
           const typename Tr::Val val = Tr::val(r);
           const int bin = bin_of<Tr>(Tr::key(r));
@@ -291,31 +289,55 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
   const int64_t v1 = lo < hi ? (hi + V::N - 1) / V::N : 0;
   Key* out = buf + int64_t(p) * 2 * Q * L;
 
+  constexpr int64_t STEP = int64_t(THREADS) * UNROLL;
+  // bands per element: bit 2q below pivot q, bit 2q+1 above it; fields of
+  // a power-of-two width never straddle two words
+  constexpr int MASK_BITS = 2 * MAXQ;
+  constexpr int MASK_WORDS = (UNROLL * V::N * MASK_BITS + 31) / 32;
+  V vec[UNROLL], next[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int64_t v = v0 + threadIdx.x + int64_t(u) * THREADS;
+    if (v < v1) next[u].load(x, v, n_total);
+  }
   // every thread runs the same number of rounds: the loop holds barriers
-  for (int64_t round = v0; round < v1; round += int64_t(THREADS) * UNROLL) {
-    V vec[UNROLL];
+  for (int64_t round = v0; round < v1; round += STEP) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) vec[u] = next[u];
+    // the next round's loads fly while this round counts and writes
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int64_t v = round + threadIdx.x + int64_t(u) * THREADS;
-      if (v < v1) vec[u].load(x, v, n_total);
+      const int64_t v = round + STEP + threadIdx.x + int64_t(u) * THREADS;
+      if (v < v1) next[u].load(x, v, n_total);
     }
-    // phase A: count this round's matches per band in shared memory
+    // phase A: count this round's matches per band in shared memory and
+    // keep each element's bands as a 2*MAXQ-bit mask
+    unsigned mask[MASK_WORDS];
+#pragma unroll
+    for (int w = 0; w < MASK_WORDS; ++w) mask[w] = 0;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int64_t v = round + threadIdx.x + int64_t(u) * THREADS;
       if (v >= v1) continue;
+      const int64_t g0 = v * V::N;
+      const bool whole = g0 >= lo && g0 + V::N <= hi;
 #pragma unroll
       for (int e = 0; e < V::N; ++e) {
-        const int64_t g = v * V::N + e;
-        if (g < lo || g >= hi) continue;
+        if (!whole && (g0 + e < lo || g0 + e >= hi)) continue;
         const Raw r = vec[u].r[e];
         const typename Tr::Val val = Tr::val(r);
         const int bin = bin_of<Tr>(Tr::key(r));
+        unsigned m = 0;
 #pragma unroll
         for (int q = 0; q < MAXQ; ++q) {
           if (q >= Q) break;
-          if (val < pv[q]) { if (bin >= tb[q]) atomicAdd(&s_cnt[2 * q], 1); }
-          else if (val > pv[q]) { if (bin <= ta[q]) atomicAdd(&s_cnt[2 * q + 1], 1); }
+          if (val < pv[q]) { if (bin >= tb[q]) m |= 1u << (2 * q); }
+          else if (val > pv[q]) { if (bin <= ta[q]) m |= 2u << (2 * q); }
+        }
+        if (m) {
+          for (unsigned b = m; b; b &= b - 1) atomicAdd(&s_cnt[__ffs(b) - 1], 1);
+          const int idx = (u * V::N + e) * MASK_BITS;
+          mask[idx / 32] |= m << (idx % 32);
         }
       }
     }
@@ -328,31 +350,20 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
       s_pos[threadIdx.x] = 0;
     }
     __syncthreads();
-    // phase C: write the keys (the below side stores ~key so that every
-    // row sorts ascending from the pivot outwards)
+    // phase C: write the keys of the matched elements (the below side
+    // stores ~key so that every row sorts ascending from the pivot out)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int64_t v = round + threadIdx.x + int64_t(u) * THREADS;
-      if (v >= v1) continue;
 #pragma unroll
       for (int e = 0; e < V::N; ++e) {
-        const int64_t g = v * V::N + e;
-        if (g < lo || g >= hi) continue;
-        const Raw r = vec[u].r[e];
-        const typename Tr::Val val = Tr::val(r);
-        const Key k = Tr::key(r);
-        const int bin = bin_of<Tr>(k);
-#pragma unroll
-        for (int q = 0; q < MAXQ; ++q) {
-          if (q >= Q) break;
-          int c = -1;
-          Key w = k;
-          if (val < pv[q]) { if (bin >= tb[q]) { c = 2 * q; w = Key(~k); } }
-          else if (val > pv[q]) { if (bin <= ta[q]) c = 2 * q + 1; }
-          if (c >= 0) {
-            const int pos = s_base[c] + atomicAdd(&s_pos[c], 1);
-            out[int64_t(c) * L + pos] = w;
-          }
+        const int idx = (u * V::N + e) * MASK_BITS;
+        unsigned m = (mask[idx / 32] >> (idx % 32)) & ((1u << (2 * MAXQ)) - 1u);
+        if (!m) continue;
+        const Key k = Tr::key(vec[u].r[e]);
+        for (; m; m &= m - 1) {
+          const int c = __ffs(m) - 1;
+          const int pos = s_base[c] + atomicAdd(&s_pos[c], 1);
+          out[int64_t(c) * L + pos] = (c & 1) ? k : Key(~k);
         }
       }
     }
@@ -369,29 +380,105 @@ __device__ __forceinline__ void cmp_swap(Key* s, int64_t i, int64_t j, bool asc)
   if ((a > b) == asc) { s[i] = b; s[i + j] = a; }
 }
 
-// Sort each tile in shared memory for stages k <= tile (first call), or
-// finish stage k > tile for the steps j < tile (merge calls).
+__device__ __forceinline__ uint16_t shfl_xor(uint16_t v, int m) {
+  return uint16_t(__shfl_xor_sync(0xFFFFFFFFu, unsigned(v), m));
+}
+__device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
+  return __shfl_xor_sync(0xFFFFFFFFu, v, m);
+}
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
+  return __shfl_xor_sync(0xFFFFFFFFu, v, m);
+}
+
+// Shared-memory slot of tile position i: one pad word per 32 keeps both the
+// row-wise copies and the per-thread runs of KPT keys free of bank conflicts.
+__device__ __forceinline__ int pad_idx(int i) { return i + (i >> 5); }
+
+// Steps j = j_top, j_top/2, ..., 1 of bitonic stage k over one tile.  Thread
+// t holds tile positions t*KPT .. t*KPT+KPT-1 in registers: steps j < KPT
+// stay in registers, steps j < WARP_SPAN exchange between lanes of a warp,
+// wider steps go through shared memory.
 template <class Key>
-__global__ void __launch_bounds__(SORT_THREADS)
-bitonic_tile(Key* __restrict__ buf, int64_t L, int tile, int64_t k_merge) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Key* s = reinterpret_cast<Key*>(smem);
-  const int64_t t0 = int64_t(blockIdx.x) * tile;
-  const int64_t row_off = t0 % L;
-  for (int i = threadIdx.x; i < tile; i += SORT_THREADS) s[i] = buf[t0 + i];
-  __syncthreads();
-  const int64_t k_lo = k_merge ? k_merge : 2;
-  const int64_t k_hi = k_merge ? k_merge : tile;
-  for (int64_t k = k_lo; k <= k_hi; k <<= 1) {
-    for (int64_t j = (k_merge ? tile : k) >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < tile / 2; t += SORT_THREADS) {
-        const int64_t i = (t / j) * 2 * j + (t % j);
-        cmp_swap(s, i, j, ((row_off + i) & k) == 0);
+__device__ __forceinline__ void tile_stage(Key (&r)[KPT], Key* s, int64_t tile_off,
+                                           int64_t k, int j_top) {
+  const int me = threadIdx.x * KPT;
+  int j = j_top;
+  if (j >= WARP_SPAN) {
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) s[pad_idx(me + q)] = r[q];
+    __syncthreads();
+    for (; j >= WARP_SPAN; j >>= 1) {
+      for (int t = threadIdx.x; t < SORT_TILE / 2; t += SORT_THREADS) {
+        const int i = (t / j) * 2 * j + (t % j);
+        const Key a = s[pad_idx(i)], b = s[pad_idx(i + j)];
+        if ((a > b) == (((tile_off + i) & k) == 0)) {
+          s[pad_idx(i)] = b;
+          s[pad_idx(i + j)] = a;
+        }
       }
       __syncthreads();
     }
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(me + q)];
+    __syncthreads();
   }
-  for (int i = threadIdx.x; i < tile; i += SORT_THREADS) buf[t0 + i] = s[i];
+  for (; j >= KPT; j >>= 1) {
+    const int m = j / KPT;                       // partner lane = lane ^ m
+    const bool lower = (threadIdx.x & m) == 0;
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      const Key o = shfl_xor(r[q], m);
+      const bool asc = ((tile_off + me + q) & k) == 0;
+      const Key mn = r[q] < o ? r[q] : o, mx = r[q] < o ? o : r[q];
+      r[q] = (lower == asc) ? mn : mx;
+    }
+  }
+#pragma unroll
+  for (int jj = KPT / 2; jj > 0; jj >>= 1) {
+    if (jj > j) continue;
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      if (q & jj) continue;
+      const bool asc = ((tile_off + me + q) & k) == 0;
+      const Key a = r[q], b = r[q + jj];
+      if ((a > b) == asc) { r[q] = b; r[q + jj] = a; }
+    }
+  }
+}
+
+// k_merge == 0: sort every tile (stages k = 2 .. SORT_TILE, each tile in the
+// direction its position in the row asks for).  k_merge > 0: finish stage
+// k_merge for the steps j < SORT_TILE.  Rows are at least SORT_TILE wide.
+template <class Key>
+__global__ void __launch_bounds__(SORT_THREADS)
+bitonic_tile(Key* __restrict__ buf, int64_t L, int64_t k_merge) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Key* s = reinterpret_cast<Key*>(smem);
+  const int64_t t0 = int64_t(blockIdx.x) * SORT_TILE;
+  const int64_t tile_off = t0 % L;
+#pragma unroll
+  for (int c = 0; c < KPT; ++c) {
+    const int i = c * SORT_THREADS + threadIdx.x;
+    s[pad_idx(i)] = buf[t0 + i];
+  }
+  __syncthreads();
+  Key r[KPT];
+#pragma unroll
+  for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(threadIdx.x * KPT + q)];
+  __syncthreads();
+  if (k_merge == 0) {
+    for (int k = 2; k <= SORT_TILE; k <<= 1) tile_stage(r, s, tile_off, k, k >> 1);
+  } else {
+    tile_stage(r, s, tile_off, k_merge, SORT_TILE >> 1);
+  }
+#pragma unroll
+  for (int q = 0; q < KPT; ++q) s[pad_idx(threadIdx.x * KPT + q)] = r[q];
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < KPT; ++c) {
+    const int i = c * SORT_THREADS + threadIdx.x;
+    buf[t0 + i] = s[pad_idx(i)];
+  }
 }
 
 template <class Key>
@@ -478,21 +565,21 @@ int extract_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
 
-  const int tile = int(L < SORT_TILE ? L : SORT_TILE);
-  const unsigned tiles = unsigned(rows * L / tile);
-  const size_t smem = size_t(tile) * sizeof(Key);
-  cudaError_t e0 = cudaFuncSetAttribute(bitonic_tile<Key>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e0 != cudaSuccess) return int(e0);
-  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, tile, 0);
+  const unsigned tiles = unsigned(rows * L / SORT_TILE);
+  const size_t smem = size_t(SORT_TILE + SORT_TILE / 32) * sizeof(Key);
+  if ((e = cudaFuncSetAttribute(bitonic_tile<Key>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(smem))) != cudaSuccess)
+    return int(e);
+  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  for (int64_t k = 2 * int64_t(tile); k <= L; k <<= 1) {
-    for (int64_t j = k >> 1; j >= tile; j >>= 1) {
+  for (int64_t k = 2 * int64_t(SORT_TILE); k <= L; k <<= 1) {
+    for (int64_t j = k >> 1; j >= SORT_TILE; j >>= 1) {
       bitonic_step<Key><<<grid_for(rows * L / 2, STEP_THREADS), STEP_THREADS, 0, st>>>(
           buf, rows, L, k, j);
       if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
     }
-    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, tile, k);
+    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, k);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
 
@@ -536,8 +623,12 @@ extern "C" int fs_extract(int dtype, int maxq, const void* x, long long P, long 
                           const int* cand, int* cursor, void* buf, long long L,
                           long long cap, void* below, void* above, void* stream) {
   if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
-      bps > 65535 || L < 1 || (L & (L - 1)))
+      bps > 65535 || L < SORT_TILE || (L & (L - 1)))
     return kBadArgument;
   FS_DISPATCH(extract_impl, x, P, n_i, pivots, Q, bps, thr, cand, cursor, buf, L, cap,
               below, above, static_cast<cudaStream_t>(stream))
 }
+
+// Rows of the scratch buffer given to fs_extract are a power of two of at
+// least this many keys.
+extern "C" int fs_sort_tile() { return SORT_TILE; }

@@ -103,6 +103,8 @@ def _lib():
         lib.fs_extract.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, vp,
                                    vp, vp, vp, i64, i64, vp, vp, vp]
         lib.fs_extract.restype = i32
+        lib.fs_sort_tile.argtypes = []
+        lib.fs_sort_tile.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -161,9 +163,10 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
                             eq.data_ptr(), thr.data_ptr(), cand.data_ptr(),
                             counts.data_ptr(), max_cand.data_ptr(), stream),
                "fused_select count pass")
-        # the scratch rows are as wide as the fullest band (a power of two
-        # for the bitonic sort): the one host sync of the launch
-        L = 1 << (max(1, int(max_cand.item())) - 1).bit_length()
+        # the scratch rows are as wide as the fullest band, a power of two
+        # of at least one sort tile: the one host sync of the launch
+        L = max(1 << (max(1, int(max_cand.item())) - 1).bit_length(),
+                lib.fs_sort_tile())
         buf = torch.full((P * Q * 2, L), -1, dtype=_KEY_DTYPE[x.dtype],
                          device=dev)
         cursor = torch.zeros((P * Q * 2,), **i32)

@@ -5,7 +5,8 @@ Plain versions (``repro_torch.kernels.ref`` through ``dispatch``) vs
 one Pallas interpret-mode case each; the order-preserving keys vs
 ``to_sortable_u32``; dispatch, pass counting and the kernel wrappers' device
 checks.  Tolerance is zero: outputs are compared as raw bytes, so a zero's
-sign counts.  The kernel-vs-plain cases need a CUDA card and skip here.
+sign counts.  The kernels themselves are held against the plain versions on
+the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import contextlib
 
@@ -207,48 +208,3 @@ def test_make_fused_fns_are_the_seams():
     m1 = ops.make_fused_multi_fn()(x, x[0, :2], 5)
     m2 = ops.fused_count_extract_multi(x, x[0, :2], 5)
     assert all(torch.equal(a, b) for a, b in zip(m1, m2))
-
-
-# ---------------------------------------------------------------------------
-# on the card: each Hopper kernel against its plain version
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_kernels_match_plain_on_card(cuda, dtype):
-    x = as_device_tensor(_data(dtype, n=3 * N, seed=6), cuda).reshape(3, N)
-    pv = as_device_tensor(_pivots(_data(dtype, seed=6)), cuda)
-    fs.reset_launches()
-    for cap in (1, 37, N):
-        for i in range(pv.numel()):
-            got = fs.fused_select(x, pv[i], cap)
-            want = ref.fused_select_ref(x, pv[i], cap)
-            for g, w in zip(got, want):
-                assert tbits(g.cpu()) == tbits(w.cpu()), (dtype, cap, i)
-        multi = torch.cat([pv, pv[:3]])
-        got = fs.fused_select_multi(x, multi, cap)
-        want = ref.fused_select_multi_ref(x, multi, cap)
-        for g, w in zip(got, want):
-            assert tbits(g.cpu()) == tbits(w.cpu()), (dtype, cap)
-    assert fs.launches()["fused_select"] == 3 * pv.numel()
-    assert fs.launches()["fused_select_multi"] == 3 * fs.launches_for(
-        pv.numel() + 3)
-
-
-@pytest.mark.cuda
-def test_kernel_route_counts_two_passes(cuda):
-    x = torch.randn(4, 5000, device=cuda)
-    ops.reset_hbm_passes()
-    ops.fused_count_extract(x, x[0, 0], 64)
-    assert ops.hbm_passes() == 2
-    ops.reset_hbm_passes()
-    ops.fused_count_extract_multi(x, x[0, :5], 64)
-    assert ops.hbm_passes() == 2
