@@ -629,6 +629,8 @@ extern "C" int fs_extract(int dtype, int maxq, const void* x, long long P, long 
               below, above, static_cast<cudaStream_t>(stream))
 }
 
-// Rows of the scratch buffer given to fs_extract are a power of two of at
-// least this many keys.
+// Layout the caller allocates for: histogram bins per (shard, pivot, side),
+// and the least width of a scratch row (rows are a power of two this wide
+// or wider).
+extern "C" int fs_num_bins() { return NB; }
 extern "C" int fs_sort_tile() { return SORT_TILE; }

@@ -35,7 +35,6 @@ BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-NUM_BINS = 2048                 # histogram bins per (shard, pivot, side)
 MULTI_MAX_PIVOTS = 8            # pivots one fused_select_multi launch takes
 PASSES_PER_LAUNCH = 2           # full reads of the data per launch
 _BLOCKS_PER_SM = 4
@@ -103,8 +102,9 @@ def _lib():
         lib.fs_extract.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, vp,
                                    vp, vp, vp, i64, i64, vp, vp, vp]
         lib.fs_extract.restype = i32
-        lib.fs_sort_tile.argtypes = []
-        lib.fs_sort_tile.restype = i32
+        for layout in (lib.fs_num_bins, lib.fs_sort_tile):
+            layout.argtypes = []
+            layout.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -151,7 +151,7 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         bps = max(1, min(-(-_BLOCKS_PER_SM * sms // P),
                          -(-n_i // _MIN_BLOCK_ELEMS), 65535))
         i32 = dict(dtype=torch.int32, device=dev)
-        hist = torch.zeros((P, Q, 2, NUM_BINS), **i32)
+        hist = torch.zeros((P, Q, 2, lib.fs_num_bins()), **i32)
         eq = torch.zeros((P, Q), **i32)
         thr = torch.empty((P, Q, 2), **i32)
         cand = torch.empty((P, Q, 2), **i32)
