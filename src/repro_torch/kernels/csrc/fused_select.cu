@@ -23,6 +23,8 @@
 //   pass 2  (compact_kernel)   one read: every element at or beyond that bin
 //                              is appended to its band's row of a scratch
 //                              buffer through a block-aggregated cursor;
+//   trim    (trim_kernel)      a histogram of the next key bits of the
+//                              threshold bin cuts each band to about cap;
 //   sort    (bitonic_*)        each row sorted by key: tiles of 8192 keys
 //                              in registers, warp shuffles and shared memory,
 //                              the wide steps in device memory;
@@ -371,6 +373,78 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
 }
 
 // ---------------------------------------------------------------------------
+// trim: a second histogram level cuts each overfull band down to about cap
+// ---------------------------------------------------------------------------
+
+// A row holds cand sort keys (~key below the pivot, key above it: ascending
+// means outward from the pivot).  Keys in bins before the threshold bin are
+// all kept; of the threshold bin only the sub-bins up to the one where the
+// count reaches cap are kept.  The row is compacted in place, the freed tail
+// is refilled with all-ones keys, and cand becomes the kept count.
+template <class Tr>
+__global__ void __launch_bounds__(THREADS)
+trim_kernel(typename Tr::Key* __restrict__ buf, int64_t L, const int* __restrict__ hist,
+            const int* __restrict__ thr, int* __restrict__ cand, int cap,
+            int* __restrict__ max_kept) {
+  using Key = typename Tr::Key;
+  constexpr int SUB_BITS = Tr::BITS - BIN_BITS < BIN_BITS ? Tr::BITS - BIN_BITS : BIN_BITS;
+  constexpr int SUB = 1 << SUB_BITS;
+  constexpr int SUB_SHIFT = Tr::BITS - BIN_BITS - SUB_BITS;
+  __shared__ int s_hist[SUB];
+  __shared__ int s_sub, s_pos;
+  const int seg = blockIdx.x;
+  const int c = cand[seg];
+  if (c <= cap) {                       // nothing beyond cap to drop
+    if (threadIdx.x == 0) atomicMax(max_kept, c);
+    return;
+  }
+  const int t = thr[seg];
+  const int b1 = (seg & 1) ? t : NB - 1 - t;          // threshold bin, sort-key space
+  const int need = cap - (c - hist[int64_t(seg) * NB + t]);   // >= 1
+  Key* row = buf + int64_t(seg) * L;
+  for (int i = threadIdx.x; i < SUB; i += THREADS) s_hist[i] = 0;
+  if (threadIdx.x == 0) s_pos = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < c; i += THREADS) {
+    const Key k = row[i];
+    if (int(k >> (Tr::BITS - BIN_BITS)) == b1)
+      atomicAdd(&s_hist[int(k >> SUB_SHIFT) & (SUB - 1)], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0, b2 = SUB - 1;
+    for (int i = 0; i < SUB; ++i) {
+      run += s_hist[i];
+      if (run >= need) { b2 = i; break; }
+    }
+    s_sub = b2;
+  }
+  __syncthreads();
+  const int b2 = s_sub;
+  // each round reads its keys before any kept key is written: writes land
+  // below the kept count so far, never on a key still to be read
+  for (int base = 0; base < c; base += THREADS) {
+    const int i = base + threadIdx.x;
+    Key k = 0;
+    bool keep = false;
+    if (i < c) {
+      k = row[i];
+      const int hb = int(k >> (Tr::BITS - BIN_BITS));
+      keep = hb < b1 || (hb == b1 && (int(k >> SUB_SHIFT) & (SUB - 1)) <= b2);
+    }
+    __syncthreads();
+    if (keep) row[atomicAdd(&s_pos, 1)] = k;
+    __syncthreads();
+  }
+  const int kept = s_pos;
+  for (int i = kept + threadIdx.x; i < c; i += THREADS) row[i] = Key(~Key(0));
+  if (threadIdx.x == 0) {
+    cand[seg] = kept;
+    atomicMax(max_kept, kept);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bitonic sort of every row of a (rows, L) key buffer, L a power of two
 // ---------------------------------------------------------------------------
 
@@ -448,14 +522,16 @@ __device__ __forceinline__ void tile_stage(Key (&r)[KPT], Key* s, int64_t tile_o
 
 // k_merge == 0: sort every tile (stages k = 2 .. SORT_TILE, each tile in the
 // direction its position in the row asks for).  k_merge > 0: finish stage
-// k_merge for the steps j < SORT_TILE.  Rows are at least SORT_TILE wide.
+// k_merge for the steps j < SORT_TILE.  Each row holds `len` keys to sort
+// (a power of two, at least SORT_TILE) at a stride of `stride` keys.
 template <class Key>
 __global__ void __launch_bounds__(SORT_THREADS)
-bitonic_tile(Key* __restrict__ buf, int64_t L, int64_t k_merge) {
+bitonic_tile(Key* __restrict__ buf, int64_t stride, int64_t len, int64_t k_merge) {
   extern __shared__ __align__(16) unsigned char smem[];
   Key* s = reinterpret_cast<Key*>(smem);
-  const int64_t t0 = int64_t(blockIdx.x) * SORT_TILE;
-  const int64_t tile_off = t0 % L;
+  const int64_t tiles_per_row = len / SORT_TILE;
+  const int64_t tile_off = (blockIdx.x % tiles_per_row) * SORT_TILE;
+  const int64_t t0 = (blockIdx.x / tiles_per_row) * stride + tile_off;
 #pragma unroll
   for (int c = 0; c < KPT; ++c) {
     const int i = c * SORT_THREADS + threadIdx.x;
@@ -483,14 +559,15 @@ bitonic_tile(Key* __restrict__ buf, int64_t L, int64_t k_merge) {
 
 template <class Key>
 __global__ void __launch_bounds__(STEP_THREADS)
-bitonic_step(Key* __restrict__ buf, int64_t rows, int64_t L, int64_t k, int64_t j) {
-  const int64_t half = L / 2;
+bitonic_step(Key* __restrict__ buf, int64_t rows, int64_t stride, int64_t len,
+             int64_t k, int64_t j) {
+  const int64_t half = len / 2;
   const int64_t pairs = rows * half;
   for (int64_t t = int64_t(blockIdx.x) * STEP_THREADS + threadIdx.x; t < pairs;
        t += int64_t(gridDim.x) * STEP_THREADS) {
     const int64_t r = t / half, u = t % half;
     const int64_t i = (u / j) * 2 * j + (u % j);
-    cmp_swap(buf + r * L, i, j, (i & k) == 0);
+    cmp_swap(buf + r * stride, i, j, (i & k) == 0);
   }
 }
 
@@ -551,35 +628,45 @@ int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
 }
 
 template <class Tr, int MAXQ>
-int extract_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
-                 int bps, const int* thr, const int* cand, int* cursor, void* buf_v,
-                 int64_t L, int64_t cap, void* below, void* above, cudaStream_t st) {
+int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
+                 int cap, int bps, const int* hist, const int* thr, int* cand,
+                 int* cursor, void* buf_v, int64_t L, int* max_kept, cudaStream_t st) {
   using Raw = typename Tr::Raw;
   using Key = typename Tr::Key;
   Key* buf = static_cast<Key*>(buf_v);
   const int64_t chunk = (n_i + bps - 1) / bps;
-  const int64_t rows = P * Q * 2;
   compact_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
       static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q,
       chunk, thr, cursor, buf, L);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
+  trim_kernel<Tr><<<unsigned(P * Q * 2), THREADS, 0, st>>>(buf, L, hist, thr, cand, cap,
+                                                           max_kept);
+  return int(cudaGetLastError());
+}
 
-  const unsigned tiles = unsigned(rows * L / SORT_TILE);
+template <class Tr, int MAXQ>
+int sort_emit_impl(int64_t rows, const int* cand, void* buf_v, int64_t L, int64_t len,
+                   int64_t cap, void* below, void* above, cudaStream_t st) {
+  using Raw = typename Tr::Raw;
+  using Key = typename Tr::Key;
+  Key* buf = static_cast<Key*>(buf_v);
+  const unsigned tiles = unsigned(rows * len / SORT_TILE);
   const size_t smem = size_t(SORT_TILE + SORT_TILE / 32) * sizeof(Key);
+  cudaError_t e;
   if ((e = cudaFuncSetAttribute(bitonic_tile<Key>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 int(smem))) != cudaSuccess)
     return int(e);
-  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, 0);
+  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, len, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  for (int64_t k = 2 * int64_t(SORT_TILE); k <= L; k <<= 1) {
+  for (int64_t k = 2 * int64_t(SORT_TILE); k <= len; k <<= 1) {
     for (int64_t j = k >> 1; j >= SORT_TILE; j >>= 1) {
-      bitonic_step<Key><<<grid_for(rows * L / 2, STEP_THREADS), STEP_THREADS, 0, st>>>(
-          buf, rows, L, k, j);
+      bitonic_step<Key><<<grid_for(rows * len / 2, STEP_THREADS), STEP_THREADS, 0, st>>>(
+          buf, rows, L, len, k, j);
       if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
     }
-    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, k);
+    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, len, k);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
 
@@ -618,15 +705,26 @@ extern "C" int fs_count(int dtype, int maxq, const void* x, long long P, long lo
               max_cand, static_cast<cudaStream_t>(stream))
 }
 
-extern "C" int fs_extract(int dtype, int maxq, const void* x, long long P, long long n_i,
-                          const void* pivots, int Q, int bps, const int* thr,
-                          const int* cand, int* cursor, void* buf, long long L,
-                          long long cap, void* below, void* above, void* stream) {
+extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long long n_i,
+                          const void* pivots, int Q, int cap, int bps, const int* hist,
+                          const int* thr, int* cand, int* cursor, void* buf, long long L,
+                          int* max_kept, void* stream) {
   if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
       bps > 65535 || L < SORT_TILE || (L & (L - 1)))
     return kBadArgument;
-  FS_DISPATCH(extract_impl, x, P, n_i, pivots, Q, bps, thr, cand, cursor, buf, L, cap,
-              below, above, static_cast<cudaStream_t>(stream))
+  FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, cap, bps, hist, thr, cand, cursor, buf,
+              L, max_kept, static_cast<cudaStream_t>(stream))
+}
+
+// Sorts the first `len` keys of every row (len a power of two, SORT_TILE <=
+// len <= L) and emits the bands.
+extern "C" int fs_sort_emit(int dtype, int maxq, long long rows, const int* cand, void* buf,
+                            long long L, long long len, long long cap, void* below,
+                            void* above, void* stream) {
+  if (rows < 1 || cap < 1 || len < SORT_TILE || len > L || (len & (len - 1)))
+    return kBadArgument;
+  FS_DISPATCH(sort_emit_impl, rows, cand, buf, L, len, cap, below, above,
+              static_cast<cudaStream_t>(stream))
 }
 
 // Layout the caller allocates for: histogram bins per (shard, pivot, side),

@@ -99,9 +99,12 @@ def _lib():
         lib.fs_count.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, i32,
                                  vp, vp, vp, vp, vp, vp, vp]
         lib.fs_count.restype = i32
-        lib.fs_extract.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, vp,
-                                   vp, vp, vp, i64, i64, vp, vp, vp]
-        lib.fs_extract.restype = i32
+        lib.fs_compact.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, i32,
+                                   vp, vp, vp, vp, vp, i64, vp, vp]
+        lib.fs_compact.restype = i32
+        lib.fs_sort_emit.argtypes = [i32, i32, i64, vp, vp, i64, i64, i64, vp,
+                                     vp, vp]
+        lib.fs_sort_emit.restype = i32
         for layout in (lib.fs_num_bins, lib.fs_sort_tile):
             layout.argtypes = []
             layout.restype = i32
@@ -139,6 +142,10 @@ def _prepare(x: torch.Tensor, pivots: torch.Tensor, cap: int):
     return x, pivots
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << (max(1, n) - 1).bit_length()
+
+
 def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
     """One launch: two passes over x for up to ``maxq`` pivots."""
     P, n_i = x.shape
@@ -164,20 +171,28 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
                             counts.data_ptr(), max_cand.data_ptr(), stream),
                "fused_select count pass")
         # the scratch rows are as wide as the fullest band, a power of two
-        # of at least one sort tile: the one host sync of the launch
-        L = max(1 << (max(1, int(max_cand.item())) - 1).bit_length(),
-                lib.fs_sort_tile())
-        buf = torch.full((P * Q * 2, L), -1, dtype=_KEY_DTYPE[x.dtype],
-                         device=dev)
-        cursor = torch.zeros((P * Q * 2,), **i32)
+        # of at least one sort tile: the first host sync of the launch
+        tile = lib.fs_sort_tile()
+        L = max(_pow2_at_least(int(max_cand.item())), tile)
+        rows = P * Q * 2
+        buf = torch.full((rows, L), -1, dtype=_KEY_DTYPE[x.dtype], device=dev)
+        cursor = torch.zeros((rows,), **i32)
+        max_kept = torch.zeros((1,), **i32)
+        _check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
+                              pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
+                              thr.data_ptr(), cand.data_ptr(),
+                              cursor.data_ptr(), buf.data_ptr(), L,
+                              max_kept.data_ptr(), stream),
+               "fused_select compaction pass")
+        # the trimmed bands set how much of each row the sort covers: the
+        # second host sync
+        length = max(_pow2_at_least(int(max_kept.item())), tile)
         below = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
-        _check(lib.fs_extract(code, maxq, x.data_ptr(), P, n_i,
-                              pivots.data_ptr(), Q, bps, thr.data_ptr(),
-                              cand.data_ptr(), cursor.data_ptr(),
-                              buf.data_ptr(), L, cap, below.data_ptr(),
-                              above.data_ptr(), stream),
-               "fused_select extract pass")
+        _check(lib.fs_sort_emit(code, maxq, rows, cand.data_ptr(),
+                                buf.data_ptr(), L, length, cap,
+                                below.data_ptr(), above.data_ptr(), stream),
+               "fused_select band sort")
     return counts, below, above
 
 
