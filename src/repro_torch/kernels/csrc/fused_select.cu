@@ -630,7 +630,8 @@ int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
 template <class Tr, int MAXQ>
 int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
                  int cap, int bps, const int* hist, const int* thr, int* cand,
-                 int* cursor, void* buf_v, int64_t L, int* max_kept, cudaStream_t st) {
+                 int* cursor, void* buf_v, int64_t L, int trim, int* max_kept,
+                 cudaStream_t st) {
   using Raw = typename Tr::Raw;
   using Key = typename Tr::Key;
   Key* buf = static_cast<Key*>(buf_v);
@@ -639,7 +640,7 @@ int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int 
       static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q,
       chunk, thr, cursor, buf, L);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
+  if (e != cudaSuccess || !trim) return int(e);
   trim_kernel<Tr><<<unsigned(P * Q * 2), THREADS, 0, st>>>(buf, L, hist, thr, cand, cap,
                                                            max_kept);
   return int(cudaGetLastError());
@@ -705,15 +706,17 @@ extern "C" int fs_count(int dtype, int maxq, const void* x, long long P, long lo
               max_cand, static_cast<cudaStream_t>(stream))
 }
 
+// trim != 0 also runs trim_kernel, which leaves the widest kept band in
+// max_kept.
 extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long long n_i,
                           const void* pivots, int Q, int cap, int bps, const int* hist,
                           const int* thr, int* cand, int* cursor, void* buf, long long L,
-                          int* max_kept, void* stream) {
+                          int trim, int* max_kept, void* stream) {
   if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
       bps > 65535 || L < SORT_TILE || (L & (L - 1)))
     return kBadArgument;
   FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, cap, bps, hist, thr, cand, cursor, buf,
-              L, max_kept, static_cast<cudaStream_t>(stream))
+              L, trim, max_kept, static_cast<cudaStream_t>(stream))
 }
 
 // Sorts the first `len` keys of every row (len a power of two, SORT_TILE <=

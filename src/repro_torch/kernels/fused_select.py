@@ -100,7 +100,7 @@ def _lib():
                                  vp, vp, vp, vp, vp, vp, vp]
         lib.fs_count.restype = i32
         lib.fs_compact.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, i32,
-                                   vp, vp, vp, vp, vp, i64, vp, vp]
+                                   vp, vp, vp, vp, vp, i64, i32, vp, vp]
         lib.fs_compact.restype = i32
         lib.fs_sort_emit.argtypes = [i32, i32, i64, vp, vp, i64, i64, i64, vp,
                                      vp, vp]
@@ -174,6 +174,9 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         # of at least one sort tile: the first host sync of the launch
         tile = lib.fs_sort_tile()
         L = max(_pow2_at_least(int(max_cand.item())), tile)
+        # trimming the bands to about cap pays only when it can shorten
+        # the sorted rows
+        trim = L > max(_pow2_at_least(cap), tile)
         rows = P * Q * 2
         buf = torch.full((rows, L), -1, dtype=_KEY_DTYPE[x.dtype], device=dev)
         cursor = torch.zeros((rows,), **i32)
@@ -181,12 +184,13 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         _check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
                               pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
                               thr.data_ptr(), cand.data_ptr(),
-                              cursor.data_ptr(), buf.data_ptr(), L,
+                              cursor.data_ptr(), buf.data_ptr(), L, int(trim),
                               max_kept.data_ptr(), stream),
                "fused_select compaction pass")
-        # the trimmed bands set how much of each row the sort covers: the
+        # the trimmed bands set how much of each row the sort covers: a
         # second host sync
-        length = max(_pow2_at_least(int(max_kept.item())), tile)
+        length = (max(_pow2_at_least(int(max_kept.item())), tile) if trim
+                  else L)
         below = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         _check(lib.fs_sort_emit(code, maxq, rows, cand.data_ptr(),
