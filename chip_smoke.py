@@ -3,25 +3,44 @@
 
     python3 chip_smoke.py [--seed 0]
 
-1. Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and prints the build time.
-2. Holds each kernel against its plain PyTorch version on the card, bit for
-   bit (tolerance zero), over f32/bf16/int32/f64 x the edge cases (pivots at
-   and beyond the extremes, all-equal data, cap above the band and cap =
-   n_i, n_i not a multiple of the vector width, duplicate pivots, mixed
-   -0.0/+0.0, the dtype's sentinels in the data, heavy ties, more pivots
-   than one launch takes).
-3. Drives the main path at the paper's size: n = 120 x 2^23 = 1,006,632,960
+1. Builds every Hopper kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, sm_90a, all started together) and prints the build time and
+   each library's ptxas spill lines.
+2. Holds each of the six kernels against its plain PyTorch version on the
+   card, bit for bit (tolerance zero), and prints passed/total per kernel:
+   f32/bf16/int32/f64 (the sortable-u32 domain for byte_histogram) x the
+   edge cases (pivots at and beyond the extremes, all-equal data, ties,
+   mixed -0.0/+0.0, the dtype's sentinels in the data, n not a multiple of
+   the vector width, cap = n_i, duplicate pivots, more pivots than one
+   launch takes; for segmented_select also empty groups, keys -1 and G, one
+   group holding all the data, G*Q = 1 and G*Q too large for one block's
+   shared memory; for the radix walks a k outside [1, n]).
+3. Checks that the card's sorts, argmins and answers equal the CPU port's
+   on signed zeros and ties, bit for bit.
+4. Drives the main path at the paper's size: n = 120 x 2^23 = 1,006,632,960
    float32 normal values from ``--seed`` in (120, 2^23) shards, eps = 1e-4
    (Spark ``percentile_approx``'s default accuracy 10000):
    ``gk_select(q=0.5, block_select=True)`` and ``gk_select_multi(qs=(0.01,
    0.25, 0.5, 0.75, 0.99), block_select=True)``, each equal bit for bit to
-   a sort of the whole array on the card.  Every launch count is zeroed just
-   before and read just after; both kernels must have launched.  Prints the
-   median wall time of 5 runs, each phase's time, the pass count and peak
-   memory.
-4. Times each kernel at the main path's shapes beside its bound, its plain
-   version and the nearest library call, and prints one ``kernels`` JSON line.
+   a sort of the whole array on the card.
+5. Drives the counting and radix entry points on the same array:
+   ``radix_select_kth`` and ``radix_select_kth_bitwise`` at the median rank
+   (bit-identical to the sort), ``count3`` and ``band_count`` (equal to
+   direct torch counts).
+6. Drives the grouped path at the same size: per-tenant latencies
+   (lognormal(1.0, 0.6) x (1 + 0.3 tenant), as ``examples/
+   grouped_telemetry.py``) with int32 keys over 32 tenants whose traffic
+   shares come from Dirichlet(0.5) of ``--seed``;
+   ``gk_select_grouped(qs=(0.5, 0.99), num_groups=32, eps=1e-4,
+   block_select=True)``, every cell equal bit for bit to a (key, value)
+   sort of the whole data on the card.
+   Before each of 4-6 every launch count is zeroed, after it the counts are
+   read, and every kernel of that path must have launched.  Each prints its
+   median wall time of 5 runs after one warm-up, phase times, pass counts,
+   peak memory and a torch.profiler breakdown.
+7. Times each kernel at its path's shapes beside its bound, its plain
+   version and the PyTorch calls that compute the same function, and prints
+   one ``kernels`` JSON line with all six.
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -43,11 +62,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 P, N_I, EPS = 120, 1 << 23, 1e-4
 QS = (0.01, 0.25, 0.5, 0.75, 0.99)
+GROUPS, GROUP_QS = 32, (0.5, 0.99)
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
-SOURCE = "src/repro_torch/kernels/csrc/fused_select.cu"
+U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"fused_select": "fused_select.cu",
+           "fused_select_multi": "fused_select.cu",
+           "partition_count": "partition_count.cu",
+           "segmented_select": "segmented_select.cu",
+           "byte_histogram": "byte_histogram.cu",
+           "band_count": "band_count.cu"}
 REPLACES = {"fused_select": "src/repro/kernels/fused_select.py:119",
-            "fused_select_multi": "src/repro/kernels/fused_select.py:207"}
+            "fused_select_multi": "src/repro/kernels/fused_select.py:207",
+            "partition_count": "src/repro/kernels/partition_count.py:86",
+            "segmented_select": "src/repro/kernels/segmented_select.py:86",
+            "byte_histogram": "src/repro/kernels/fused_select.py:289",
+            "band_count": "src/repro/kernels/band_count.py:46"}
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -167,8 +198,26 @@ def _pivots_for(x: torch.Tensor):
     return torch.stack([p.to(x.dtype).cuda() for p in picks])
 
 
-def kernel_parity(fs, ref) -> dict:
-    """Every case through both kernels and both plain versions."""
+class Tally:
+    """passed/total per kernel over the parity cases."""
+
+    def __init__(self):
+        self.passed, self.total = {}, {}
+
+    def add(self, name: str, ok: bool, what: str) -> None:
+        self.total[name] = self.total.get(name, 0) + 1
+        self.passed[name] = self.passed.get(name, 0) + int(ok)
+        if not ok:
+            print(f"MISMATCH {name} {what}", flush=True)
+
+    def result(self) -> dict:
+        return {name: (self.passed[name], self.total[name])
+                for name in self.total}
+
+
+def fused_parity(tally) -> None:
+    """Every case through both fused kernels and both plain versions."""
+    from repro_torch.kernels import fused_select as fs, ref
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cases = [("normal", (3, 1000), [1, 50, 1000]),
              ("normal", (2, 1001), [7, 1001]),
@@ -178,8 +227,6 @@ def kernel_parity(fs, ref) -> dict:
              ("ties", (3, 20_000), [2000]),
              ("signed_zeros", (2, 3001), [40, 3001]),
              ("sentinels", (2, 5000), [100, 5000])]
-    passed = {"fused_select": 0, "fused_select_multi": 0}
-    total = dict(passed)
     for dtype in DTYPES:
         for kind, shape, caps in cases:
             x = _case_data(dtype, kind, shape, gen)
@@ -191,24 +238,134 @@ def kernel_parity(fs, ref) -> dict:
                 for i in range(pivots.numel()):
                     got = fs.fused_select(x, pivots[i], cap)
                     want = ref.fused_select_ref(x, pivots[i], cap)
-                    total["fused_select"] += 1
-                    if _same_bits(got, want):
-                        passed["fused_select"] += 1
-                    else:
-                        print(f"MISMATCH fused_select {dtype} {kind} "
-                              f"{shape} cap={cap} pivot#{i}", flush=True)
+                    tally.add("fused_select", _same_bits(got, want),
+                              f"{dtype} {kind} {shape} cap={cap} pivot#{i}")
                 # duplicate pivots and more than one launch's worth
                 multi = torch.cat([pivots, pivots[:3]])
                 got = fs.fused_select_multi(x, multi, cap)
                 want = ref.fused_select_multi_ref(x, multi, cap)
-                total["fused_select_multi"] += 1
-                if _same_bits(got, want):
-                    passed["fused_select_multi"] += 1
-                else:
-                    print(f"MISMATCH fused_select_multi {dtype} {kind} "
-                          f"{shape} cap={cap}", flush=True)
+                tally.add("fused_select_multi", _same_bits(got, want),
+                          f"{dtype} {kind} {shape} cap={cap}")
     torch.cuda.synchronize()
-    return {name: (passed[name], total[name]) for name in passed}
+
+
+COUNT_CASES = [("normal", (1000,)), ("normal", (1001,)), ("normal", (7,)),
+               ("normal", (300_001,)), ("all_equal", (4096,)),
+               ("ties", (20_000,)), ("signed_zeros", (3001,)),
+               ("sentinels", (5000,))]
+
+
+def counting_parity(tally: Tally) -> None:
+    """partition_count (values and sortable domain, and the 32-step search),
+    band_count and byte_histogram (and the 4-pass walk) against their plain
+    versions."""
+    from repro_torch.kernels import band_count as bc, fused_select as fs
+    from repro_torch.kernels import partition_count as pc, ref
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for dtype in DTYPES:
+        for kind, shape in COUNT_CASES:
+            x = _case_data(dtype, kind, shape, gen)
+            pool = _pivots_for(x)
+            for i in range(pool.numel()):
+                got = pc.partition_count(x, pool[i])
+                want = ref.partition_count_ref(x, pool[i])
+                tally.add("partition_count", _same_bits([got], [want]),
+                          f"{dtype} {kind} {shape} pivot#{i}")
+                for j in (0, pool.numel() - 1 - i):
+                    got = bc.band_count(x, pool[i], pool[j])
+                    want = ref.band_count_ref(x, pool[i], pool[j])
+                    tally.add("band_count", _same_bits([got], [want]),
+                              f"{dtype} {kind} {shape} band#{i},{j}")
+            if dtype not in U32_DTYPES:
+                continue
+            u = ref.to_sortable_u32(x)
+            w = ref.u32_as_int64(u)
+            n = x.numel()
+            for t in (0, int(w[n // 2]), int(w.min()), int(w.max()),
+                      0xFFFFFFFF):
+                got = pc.partition_count(u, t)
+                want = ref.partition_count_ref(w, t)
+                tally.add("partition_count", _same_bits([got], [want]),
+                          f"u32 of {dtype} {kind} {shape} t={t}")
+            top = int(w[n // 3])
+            for prefix, mask, shift in ((0, 0, 24),
+                                        (top & 0xFF000000, 0xFF000000, 16),
+                                        (top & 0xFFFF0000, 0xFFFF0000, 8),
+                                        (top & 0xFFFFFF00, 0xFFFFFF00, 0)):
+                want = ref.byte_histogram_ref(u, prefix, mask, shift)
+                for src in (x, u):
+                    got = fs.byte_histogram(src, prefix, mask, shift)
+                    tally.add("byte_histogram", _same_bits([got], [want]),
+                              f"{src.dtype} of {dtype} {kind} {shape} "
+                              f"shift={shift}")
+            for k in (0, 1, n // 2, n, n + 1):
+                tally.add("byte_histogram", _same_bits(
+                    [fs.radix_walk(x, k)], [ref.radix_walk_ref(u, k)]),
+                    f"radix walk {dtype} {kind} {shape} k={k}")
+                tally.add("partition_count", _same_bits(
+                    [pc.bisect(x, k)], [ref.bisect_ref(u, k)]),
+                    f"bisect {dtype} {kind} {shape} k={k}")
+    torch.cuda.synchronize()
+
+
+def _group_keys(kind: str, shape, G: int, gen) -> torch.Tensor:
+    if kind == "one":                       # one group holds all the data
+        return torch.zeros(shape, dtype=torch.int32, device="cuda")
+    k = torch.randint(-1, G + 1, shape, generator=gen, device="cuda",
+                      dtype=torch.int32)    # -1 and G belong to no group
+    if kind == "empty":                     # group 1 holds nothing
+        k = torch.where(k == 1, torch.full_like(k, G), k)
+    return k
+
+
+def _pivot_grids(x: torch.Tensor, keys: torch.Tensor, G: int, Q: int):
+    """A grid cycling through the edge pivots, and one of each group's own
+    quantiles (the pool's middle value for an empty group)."""
+    pool = _pivots_for(x)
+    if x.dtype.is_floating_point:
+        pool = torch.cat([pool, torch.tensor([-0.0, 0.0], device="cuda")
+                          .to(x.dtype)])
+    cyc = pool[torch.arange(G * Q, device="cuda") % pool.numel()]
+    own = []
+    for g in range(G):
+        mine = torch.sort(x[keys == g].double()).values
+        for q in range(Q):
+            own.append(mine[(q + 1) * (mine.numel() - 1) // (Q + 1)]
+                       if mine.numel() else pool[0].double())
+    return [cyc.reshape(G, Q), torch.stack(own).to(x.dtype).reshape(G, Q)]
+
+
+SEGMENTED_CASES = [
+    # data, shape, G, Q, keys, caps
+    ("normal", (3, 1000), 5, 3, "spread", [1, 37, 1000]),
+    ("normal", (2, 1001), 4, 2, "empty", [7, 1001]),
+    ("normal", (1, 7), 2, 2, "spread", [1, 7]),
+    ("normal", (2, 300_001), 6, 2, "spread", [5000]),
+    ("all_equal", (2, 4096), 3, 2, "spread", [16, 4096]),
+    ("ties", (3, 20_000), 4, 2, "spread", [2000]),
+    ("signed_zeros", (2, 3001), 3, 3, "spread", [40, 3001]),
+    ("sentinels", (2, 5000), 3, 2, "spread", [100, 5000]),
+    ("normal", (2, 5000), 1, 1, "one", [64, 5000]),           # G*Q = 1
+    ("normal", (2, 20_000), 100, 2, "spread", [50]),   # histograms in 2 slices
+]
+
+
+def segmented_parity(tally: Tally) -> None:
+    """segmented_select against its plain version, all three outputs."""
+    from repro_torch.kernels import ref, segmented_select as ss
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    for dtype in DTYPES:
+        for kind, shape, G, Q, key_kind, caps in SEGMENTED_CASES:
+            x = _case_data(dtype, kind, shape, gen)
+            keys = _group_keys(key_kind, shape, G, gen)
+            for gi, grid in enumerate(_pivot_grids(x, keys, G, Q)):
+                for cap in caps:
+                    got = ss.segmented_select(x, keys, grid, cap)
+                    want = ref.segmented_select_ref(x, keys, grid, cap)
+                    tally.add("segmented_select", _same_bits(got, want),
+                              f"{dtype} {kind} {shape} G={G} Q={Q} "
+                              f"{key_kind} grid#{gi} cap={cap}")
+    torch.cuda.synchronize()
 
 
 def signed_zero_path() -> int:
@@ -231,6 +388,30 @@ def signed_zero_path() -> int:
     if not torch.equal(_bits(gk_select_multi(x, qs, block_select=True).cpu()),
                        _bits(gk_select_multi(xc, qs))):
         bad += 1
+    # the grouped path: both argsorts, the masked first-minimum argmin, the
+    # segmented kernel and the resolve sorts on zeros and ties
+    from repro_torch.core import gk_select_grouped
+    from repro_torch.core.grouped import query_grouped_sketch
+    for kind in ("signed_zeros", "ties"):
+        x = _case_data(torch.float32, kind, (4, 2000), gen)
+        keys = torch.randint(-1, 6, (4, 2000), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        for bs in (False, True):
+            got = gk_select_grouped(x, keys, (0.1, 0.3, 0.5, 0.9),
+                                    num_groups=5, eps=0.05, block_select=bs)
+            want = gk_select_grouped(x.cpu(), keys.cpu(), (0.1, 0.3, 0.5, 0.9),
+                                     num_groups=5, eps=0.05)
+            bad += not torch.equal(_bits(got.cpu()), _bits(want))
+    # argmin ties: estimates 2, 4, 6, ... against odd ranks tie two lanes;
+    # the first one must win on the card as on the CPU
+    vals = torch.arange(64, dtype=torch.float32).reshape(2, 32)
+    wts = torch.full((2, 32), 2, dtype=torch.int32)
+    ks = torch.tensor([[1, 3, 33], [5, 63, 64]], dtype=torch.int32)
+    slack = torch.zeros(2, dtype=torch.int32)
+    want = query_grouped_sketch(vals, wts, slack, ks)
+    got = query_grouped_sketch(vals.cuda(), wts.cuda(), slack.cuda(), ks.cuda())
+    first = torch.tensor([[0.0, 0.0, 15.0], [33.0, 62.0, 63.0]])
+    bad += not (torch.equal(got.cpu(), want) and torch.equal(want, first))
     return bad
 
 
@@ -260,7 +441,8 @@ def main_path(seed: int) -> dict:
     del srt
     torch.cuda.empty_cache()
 
-    fs.reset_launches()
+    import repro_torch.kernels as K
+    K.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     single_s, multi_s = [], []
     got_single = got_multi = None
@@ -271,15 +453,15 @@ def main_path(seed: int) -> dict:
         got_multi, t = _sync_time(
             lambda: gk_select_multi(x, QS, eps=EPS, block_select=True))
         multi_s.append(t)
-    main_launches = fs.launches()
+    main_launches = K.launches()
     peak = torch.cuda.max_memory_allocated()
 
     if not torch.equal(_bits(got_single), _bits(want_single)):
         raise AssertionError(f"gk_select: {got_single} != oracle {want_single}")
     if not torch.equal(_bits(got_multi), _bits(want_multi)):
         raise AssertionError(f"gk_select_multi: {got_multi} != {want_multi}")
-    for name, count in main_launches.items():
-        if count < 1:
+    for name in ("fused_select", "fused_select_multi"):
+        if main_launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
 
     ops.reset_hbm_passes()
@@ -310,7 +492,21 @@ def main_path(seed: int) -> dict:
     del vals, weights, counts, below, above
     torch.cuda.empty_cache()
 
-    kernels = kernel_timings(x, pivot, pivots, cap, fs, ref, main_launches)
+    kernels = [
+        _kernel_row("fused_select", main_launches["fused_select"],
+                    lambda: fs.fused_select(x, pivot, cap),
+                    lambda: ref.fused_select_ref(x, pivot, cap),
+                    lambda: _library_bands(x, pivot, cap),
+                    "per pivot: torch.topk of the shards masked below and "
+                    "above it (both bands), (x < p).sum(-1), (x == p).sum(-1)",
+                    x.numel() * 4 + P * (3 * 4 + 2 * cap * 4)),
+        _kernel_row("fused_select_multi", main_launches["fused_select_multi"],
+                    lambda: fs.fused_select_multi(x, pivots, cap),
+                    lambda: ref.fused_select_multi_ref(x, pivots, cap),
+                    lambda: _library_bands(x, pivots, cap),
+                    "the same calls for each of the 5 pivots",
+                    x.numel() * 4 + len(QS) * P * (3 * 4 + 2 * cap * 4)),
+    ]
     profiles = {
         "gk_select": _profile(
             lambda: gk_select(x, 0.5, eps=EPS, block_select=True)),
@@ -332,48 +528,288 @@ def main_path(seed: int) -> dict:
         "passes_gk_select_multi": passes_multi,
         "peak_memory_bytes": peak, "launches": main_launches,
         "profiles": profiles, "kernels": kernels,
-    }
+    }, (x, pivots, want_single, k_single)
 
 
-def kernel_timings(x, pivot, pivots, cap, fs, ref, main_launches) -> list:
-    """Each kernel at the main path's shapes: parity with its plain version
-    on these inputs, its time, the plain version's, one library call's, and
-    the bound (each input byte read once, each output byte written once)."""
+def _library_bands(x, pivots, cap):
+    """PyTorch calls that compute fused_select's function for each pivot."""
+    lo = torch.tensor(float("-inf"), device=x.device, dtype=x.dtype)
+    hi = torch.tensor(float("inf"), device=x.device, dtype=x.dtype)
     out = []
-    item = x.element_size()
-    for name, pv, kernel, plain in (
-            ("fused_select", pivot, fs.fused_select, ref.fused_select_ref),
-            ("fused_select_multi", pivots, fs.fused_select_multi,
-             ref.fused_select_multi_ref)):
-        q = pv.numel()
-        got = kernel(x, pv, cap)
-        want = plain(x, pv, cap)
-        if not _same_bits(got, want):
-            raise AssertionError(f"{name} differs from its plain version at "
-                                 f"the main path's shapes")
-        err = _max_abs_err(got, want)
-        del got, want
-        ms = _event_ms(lambda: kernel(x, pv, cap), 5)
-        plain_ms = _event_ms(lambda: plain(x, pv, cap), 2)
-        # nearest library call: torch.topk over the masked shards, for the
-        # below band of the first pivot only (one side of the work)
-        masked = torch.where(x < pv.reshape(-1)[0], x,
-                             torch.tensor(float("-inf"), device=x.device))
-        library_ms = _event_ms(lambda: torch.topk(masked, cap, dim=-1), 2)
-        del masked
-        torch.cuda.empty_cache()
-        moved = x.numel() * item + q * P * (3 * 4 + 2 * cap * item)
-        out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms,
-        })
+    for p in pivots.reshape(-1):
+        out.append((torch.topk(torch.where(x < p, x, lo), cap, dim=-1).values,
+                    torch.topk(torch.where(x > p, x, hi), cap, dim=-1,
+                               largest=False).values,
+                    (x < p).sum(-1), (x == p).sum(-1)))
     return out
 
 
+def _kernel_row(name, launches, kernel, plain, library, library_call,
+                moved_bytes, plain_iters=2) -> dict:
+    """One kernel at its path's shapes: parity with its plain version on
+    these inputs, its time, the plain version's, the library calls', and
+    the bound (each input byte read once, each output byte written once)."""
+    got, want = kernel(), plain()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    if not _same_bits(got, want):
+        raise AssertionError(f"{name} differs from its plain version at the "
+                             f"path's shapes")
+    err = _max_abs_err(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    row = {"name": name, "route": "cuda", "source": CSRC + SOURCES[name],
+           "replaces": REPLACES[name], "launches": launches,
+           "max_abs_err": err, "ms": _event_ms(kernel, 5),
+           "plain_ms": _event_ms(plain, plain_iters),
+           "bound_ms": moved_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None if library is None
+           else _event_ms(library, plain_iters),
+           "library_call": library_call}
+    torch.cuda.empty_cache()
+    return row
+
+
+def _median_s(fn) -> tuple:
+    """(last result, median seconds of TIMED_RUNS runs after one warm-up)."""
+    out, times = None, []
+    for _ in range(TIMED_RUNS + 1):
+        out, t = _sync_time(fn)
+        times.append(t)
+    return out, statistics.median(times[1:])
+
+
 # ---------------------------------------------------------------------------
+# 5. counting and radix entry points on the main path's array
+# ---------------------------------------------------------------------------
+
+
+def counting_path(x, pivots, want, k) -> dict:
+    import repro_torch.kernels as K
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import (band_count as bc, fused_select as fs,
+                                     partition_count as pc)
+    p, lo, hi = pivots[2], pivots[1], pivots[3]        # q = 0.5, 0.25, 0.75
+    flat = x.reshape(-1)
+
+    # each entry point alone, its launch counts zeroed just before it
+    calls = {"radix_select_kth": (lambda: ops.radix_select_kth(x, k),
+                                  {"byte_histogram": 4}),
+             "radix_select_kth_bitwise": (
+                 lambda: ops.radix_select_kth_bitwise(x, k),
+                 {"partition_count": 32}),
+             "count3": (lambda: ops.count3(x, p), {"partition_count": 1}),
+             "band_count": (lambda: ops.band_count(x, lo, hi),
+                            {"band_count": 1})}
+    got, launched = {}, {}
+    for name, (fn, expect) in calls.items():
+        K.reset_launches()
+        got[name] = fn()
+        torch.cuda.synchronize()
+        launched[name] = {kn: c for kn, c in K.launches().items() if c}
+        if launched[name] != expect:
+            raise AssertionError(f"{name} launched {launched[name]}, "
+                                 f"expected {expect}")
+    for name in ("radix_select_kth", "radix_select_kth_bitwise"):
+        if not torch.equal(_bits(got[name]), _bits(want)):
+            raise AssertionError(f"{name}: {got[name]} != oracle {want}")
+    direct = torch.stack([(flat < p).sum(), (flat == p).sum(), (flat > p).sum()])
+    if not torch.equal(got["count3"].long(), direct):
+        raise AssertionError(f"count3 {got['count3']} != {direct}")
+    if int(got["band_count"]) != int(((flat > lo) & (flat < hi)).sum()):
+        raise AssertionError("band_count differs from the direct count")
+
+    passes = {}
+    for name, fn in (("radix_select_kth", lambda: ops.radix_select_kth(x, k)),
+                     ("radix_select_kth_bitwise",
+                      lambda: ops.radix_select_kth_bitwise(x, k))):
+        ops.reset_hbm_passes()
+        fn()
+        passes[name] = ops.hbm_passes()
+    medians = {name + "_median_s": _median_s(fn)[1]
+               for name, (fn, _) in calls.items()}
+
+    n = x.numel()
+    kernels = [
+        _kernel_row("partition_count",
+                    launched["radix_select_kth_bitwise"]["partition_count"],
+                    lambda: pc.partition_count(x, p),
+                    lambda: ref.partition_count_ref(flat, p),
+                    lambda: ((flat < p).sum(), (flat == p).sum()),
+                    "(x < p).sum(), (x == p).sum()", n * 4 + 12),
+        _kernel_row("band_count", launched["band_count"]["band_count"],
+                    lambda: bc.band_count(x, lo, hi),
+                    lambda: ref.band_count_ref(flat, lo, hi),
+                    lambda: ((flat > lo) & (flat < hi)).sum(),
+                    "((x > lo) & (x < hi)).sum()", n * 4 + 4),
+        _kernel_row("byte_histogram",
+                    launched["radix_select_kth"]["byte_histogram"],
+                    lambda: fs.byte_histogram(x, 0, 0, 24),
+                    lambda: ref.byte_histogram_ref(ref.to_sortable_u32(x), 0,
+                                                   0, 24),
+                    lambda: torch.bincount(
+                        (ref.to_sortable_u32(flat).view(torch.int32) >> 24)
+                        & 0xFF, minlength=256),
+                    "torch.bincount of the top byte of to_sortable_u32(x) "
+                    "(prefix and mask 0: every element matches)",
+                    n * 4 + 256 * 4),
+    ]
+    return {"launches": launched, "passes": passes, **medians,
+            "answer": float(got["radix_select_kth"]),
+            "count3": got["count3"].tolist(),
+            "band_count": int(got["band_count"])}, kernels
+
+
+# ---------------------------------------------------------------------------
+# 6. the grouped path
+# ---------------------------------------------------------------------------
+
+
+def _tenant_data(seed: int):
+    """(P, N_I) float32 latencies and int32 tenant keys: traffic shares
+    from Dirichlet(0.5), lognormal(1.0, 0.6) x (1 + 0.3 tenant)."""
+    import numpy as np
+    shares = np.random.default_rng(seed).dirichlet(np.full(GROUPS, 0.5))
+    edges = torch.tensor(np.cumsum(shares)[:-1], dtype=torch.float32,
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    values = torch.empty((P, N_I), dtype=torch.float32, device="cuda")
+    keys = torch.empty((P, N_I), dtype=torch.int32, device="cuda")
+    for i in range(0, P, 8):
+        u = torch.rand((min(8, P - i), N_I), generator=gen, device="cuda")
+        keys[i:i + 8] = torch.searchsorted(edges, u, right=True, out_int32=True)
+        z = torch.randn((min(8, P - i), N_I), generator=gen, device="cuda")
+        values[i:i + 8] = torch.exp(z * 0.6 + 1.0) * (1.0 + 0.3 * keys[i:i + 8])
+    return values, keys
+
+
+def _grouped_oracle(values, keys):
+    """Every (tenant, level) cell from one sort of (key, value) pairs on the
+    card: the exact_target_rank(n_g, q)-th value of tenant g."""
+    from repro_torch.core import local_ops
+    from repro_torch.kernels import ref
+    comp = (keys.reshape(-1).to(torch.int64) << 32) | ref.u32_as_int64(
+        ref.to_sortable_u32(values.reshape(-1)))
+    srt = torch.sort(comp).values
+    del comp
+    n_g = torch.bincount(keys.reshape(-1), minlength=GROUPS).tolist()
+    start, idx = 0, []
+    for g in range(GROUPS):
+        idx += [start + local_ops.exact_target_rank(n_g[g], q) - 1
+                for q in GROUP_QS]
+        start += n_g[g]
+    low = srt[torch.tensor(idx, device="cuda")].to(torch.int32)
+    del srt
+    torch.cuda.empty_cache()
+    return ref.from_sortable_u32(low.view(torch.uint32), torch.float32).reshape(
+        GROUPS, len(GROUP_QS)), n_g
+
+
+def grouped_path(seed: int):
+    import repro_torch.kernels as K
+    from repro_torch.core import engine, gk_select_grouped, local_ops
+    from repro_torch.core import grouped as gr
+    from repro_torch.kernels import ops, ref, segmented_select as ss
+
+    values, keys = _tenant_data(seed)
+    want, n_g = _grouped_oracle(values, keys)
+    n = values.numel()
+    G, Q = GROUPS, len(GROUP_QS)
+
+    def query():
+        return gk_select_grouped(values, keys, GROUP_QS, num_groups=G,
+                                 eps=EPS, block_select=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    got = query()
+    torch.cuda.synchronize()
+    launched = K.launches()
+    if launched["segmented_select"] < 1:
+        raise AssertionError("segmented_select was not launched on the "
+                             "grouped path")
+    if not torch.equal(_bits(got), _bits(want)):
+        bad = int((_bits(got) != _bits(want)).sum())
+        raise AssertionError(f"gk_select_grouped: {bad} of {G * Q} cells "
+                             f"differ from the oracle")
+    got, median_s = _median_s(query)
+    runs_peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(_bits(got), _bits(want)):
+        raise AssertionError("gk_select_grouped changed between runs")
+    ops.reset_hbm_passes()
+    query()
+    passes = ops.hbm_passes()
+
+    # phases of one query, the same calls
+    phases = {}
+    _, phases["nan_check"] = _sync_time(lambda: local_ops.reject_nans(values,
+                                                                      "x"))
+    s = gr.grouped_sketch_samples(EPS, N_I)
+    (vals, wts, counts, mslack), phases["segmented_sketch_sort"] = _sync_time(
+        lambda: gr._sketch(values, keys, G, s))
+
+    def pivot_query():
+        g_vals = vals.transpose(0, 1).reshape(G, -1)
+        g_wts = wts.transpose(0, 1).reshape(G, -1)
+        kmat = gr.grouped_target_ranks(counts.sum(0, dtype=torch.int32),
+                                       GROUP_QS)
+        return kmat, gr.query_grouped_sketch(
+            g_vals, g_wts, mslack.sum(0, dtype=torch.int32), kmat)
+
+    (kmat, pivots), phases["grouped_pivot_query"] = _sync_time(pivot_query)
+    del vals, wts
+    cap = local_ops.candidate_cap(n, EPS, N_I)
+    (c, b, a), phases["segmented_count_extract"] = _sync_time(
+        lambda: ops.segmented_count_extract(values, keys, pivots, cap))
+
+    def resolve():
+        below = b.permute(1, 2, 0, 3).reshape(G * Q, P * cap)
+        above = a.permute(1, 2, 0, 3).reshape(G * Q, P * cap)
+        return engine.phase_resolve(
+            pivots.reshape(G * Q), kmat.reshape(G * Q),
+            c.sum(0, dtype=torch.int32).reshape(G * Q, 3), below, above, cap)
+
+    _, phases["resolve"] = _sync_time(resolve)
+    del c, b, a
+    torch.cuda.empty_cache()
+
+    profiles = {"gk_select_grouped": _profile(query),
+                "segmented_select": _profile(
+                    lambda: ss.segmented_select(values, keys, pivots, cap))}
+    kernels = [_kernel_row(
+        "segmented_select", launched["segmented_select"],
+        lambda: ss.segmented_select(values, keys, pivots, cap),
+        lambda: ref.segmented_select_ref(values, keys, pivots, cap), None,
+        "none: no single PyTorch call computes it; the nearest calls are "
+        "the plain version's per-(g, q) masked torch.topk and counts",
+        n * 8 + P * G * Q * (3 * 4 + 2 * cap * 4), plain_iters=1)]
+    return {
+        "n": n, "shards": P, "groups": G, "qs": list(GROUP_QS), "eps": EPS,
+        "cap": cap, "sketch_s": s, "group_counts": n_g,
+        "answers": got.tolist(), "gk_select_grouped_median_s": median_s,
+        "phases_s": phases, "passes": passes, "launches": launched,
+        "peak_memory_bytes": runs_peak,
+        "histogram_reads": ss.reads_per_launch(torch.float32, G, Q) - 1,
+        "profiles": profiles}, kernels
+
+
+# ---------------------------------------------------------------------------
+
+
+def build_all() -> None:
+    """Build every kernel library (one nvcc per source, all at once) and
+    print the build time and each library's ptxas spill lines."""
+    from repro_torch.kernels import cuda_build
+    t0 = time.perf_counter()
+    libs = cuda_build.build(*cuda_build.SOURCES)
+    spills = {}
+    for lib in libs:
+        log = lib.with_name(lib.name + ".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        spills[lib.name] = [ln for ln in lines if "spill" in ln
+                            and " 0 bytes spill stores" not in ln]
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "ptxas_spill_lines": spills}), flush=True)
 
 
 def main() -> int:
@@ -386,24 +822,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
-    from repro_torch.kernels import fused_select as fs, ref
     if "jax" in sys.modules or "repro" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.perf_counter()
-    lib = fs.build()
-    build_s = time.perf_counter() - t0
-    log = lib.with_name(lib.name + ".log").read_text() \
-        if lib.with_name(lib.name + ".log").exists() else ""
-    spills = [ln for ln in log.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")
-              and " 0 bytes spill stores" not in ln]
-    print(json.dumps({"build_s": build_s, "library": lib.name,
-                      "ptxas_spill_lines": spills}), flush=True)
+    build_all()
 
-    parity = kernel_parity(fs, ref)
+    tally = Tally()
+    fused_parity(tally)
+    counting_parity(tally)
+    segmented_parity(tally)
+    parity = tally.result()
     print(json.dumps({"parity": {k: f"{p}/{t}" for k, (p, t) in parity.items()}}),
           flush=True)
     for name, (p, t) in parity.items():
@@ -415,11 +845,19 @@ def main() -> int:
     if bad:
         raise AssertionError("signed-zero answers differ between card and CPU")
 
-    result = main_path(args.seed)
+    result, (x, pivots, want, k) = main_path(args.seed)
     kernels = result.pop("kernels")
     print(json.dumps({"main_path": result}), flush=True)
-    for k in kernels:
-        k["parity_cases"] = "{}/{}".format(*parity[k["name"]])
+    result, rows = counting_path(x, pivots, want, k)
+    kernels += rows
+    print(json.dumps({"counting_path": result}), flush=True)
+    del x, pivots, want
+    torch.cuda.empty_cache()
+    result, rows = grouped_path(args.seed)
+    kernels += rows
+    print(json.dumps({"grouped_path": result}), flush=True)
+    for row in kernels:
+        row["parity_cases"] = "{}/{}".format(*parity[row["name"]])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

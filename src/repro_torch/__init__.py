@@ -1,18 +1,22 @@
 """PyTorch + CUDA port of the GK Select exact quantile (the JAX package
 ``repro`` is the reference it is held against, and it imports nothing of it).
 
-core     the single-device main path: sample sketch -> pivot -> one fused
-         count+extract round over all shards -> resolve
-kernels  the Hopper kernels of that round, their plain PyTorch versions and
-         the device dispatch between them
+core     the single-device engines: GK Select (sample sketch -> pivot -> one
+         fused count+extract round over all shards -> resolve) and grouped
+         GK Select (segmented sketch -> per-group pivots -> one segmented
+         round -> resolve)
+kernels  the Hopper kernels, their plain PyTorch versions, the device
+         dispatch between them, and the counting and radix-select entry
+         points
 
 Entry points run where their tensor lives; those that take host data take
 ``device=`` (default ``"cuda"``, which raises without a card).
 """
 from . import core, kernels
 from .core import (exact_quantile, exact_quantile_rank, gk_select,
-                   gk_select_multi, full_sort_quantile, approx_quantile)
+                   gk_select_multi, gk_select_grouped, full_sort_quantile,
+                   approx_quantile)
 
 __all__ = ["core", "kernels", "exact_quantile", "exact_quantile_rank",
-           "gk_select", "gk_select_multi", "full_sort_quantile",
-           "approx_quantile"]
+           "gk_select", "gk_select_multi", "gk_select_grouped",
+           "full_sort_quantile", "approx_quantile"]

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-from ..kernels.ref import _sentinels, block_topk_ref, partition_count_ref
+from ..kernels.ref import (_sentinels, block_topk_ref, partition_count_ref,
+                           segmented_select_ref)
 
 
 def pad_with_high_sentinel(x: torch.Tensor, multiple: int, *,
@@ -112,6 +113,61 @@ def exact_target_rank(n: int, q: float) -> int:
     if not 0 < a <= b:
         raise ValueError(f"q must be in (0, 1], got {q}")
     return int(min(max(n, 1), max(1, -((-a * n) // b))))
+
+
+def target_rank_traced(n: torch.Tensor, q: float) -> torch.Tensor:
+    """``exact_target_rank`` for an int32 count tensor ``n`` (static q), on
+    n's device: k = ceil(q * n) over the exact dyadic rational q = a / 2^t,
+    clamped to [1, max(n, 1)], elementwise.
+
+    a * n (a up to 2^53, n < 2^31) overflows int64, so the product is formed
+    in base-2^10 int32 limbs, as the JAX package does: every partial product
+    and carry stays far below 2^31.  Empty groups (n == 0) get k = 1, which
+    resolve turns into the dtype's high sentinel."""
+    a, b = float(q).as_integer_ratio()
+    if not 0 < a <= b:
+        raise ValueError(f"q must be in (0, 1], got {q}")
+    t = b.bit_length() - 1                       # b == 2**t (q is a float)
+    n = torch.as_tensor(n).to(torch.int32)
+    n_limbs = [(n >> (10 * j)) & 1023 for j in range(4)]         # n < 2^31
+    a_limbs = [(a >> (10 * i)) & 1023
+               for i in range(max(1, -(-a.bit_length() // 10)))]
+    L = len(a_limbs) + 4
+    r = [torch.zeros_like(n) for _ in range(L + 1)]
+    for i, ai in enumerate(a_limbs):             # D = a*n ...
+        if ai == 0:
+            continue
+        for j, nj in enumerate(n_limbs):
+            r[i + j] = r[i + j] + ai * nj
+    for m in range(L + 1):                       # ... + (2^t - 1)
+        cm = ((b - 1) >> (10 * m)) & 1023
+        if cm:
+            r[m] = r[m] + cm
+    for m in range(L):                           # carry-propagate
+        r[m + 1] = r[m + 1] + (r[m] >> 10)
+        r[m] = r[m] & 1023
+    mb, rb = divmod(t, 10)                       # k = floor(D / 2^t)
+    # D < 2^t * (n+1), so the quotient is < 2^31: limbs whose shifted
+    # contribution lands at bit >= 31 are zero and skipped, and a tiny q can
+    # push mb past the last limb (quotient 0 -> k = 1)
+    k = (r[mb] >> rb) if mb <= L else torch.zeros_like(n)
+    for m in range(mb + 1, L + 1):
+        shift = 10 * (m - mb) - rb
+        if shift >= 31:
+            break
+        k = k + (r[m] << shift)
+    return torch.minimum(torch.clamp(k, min=1), torch.clamp(n, min=1))
+
+
+def grouped_count_extract(values: torch.Tensor, keys: torch.Tensor,
+                          pivots: torch.Tensor, cap: int):
+    """The plain segmented round: per (group, level) of the (G, Q) pivots,
+    the (lt, eq, gt) counts of the elements with ``keys == g`` and both
+    capped candidate bands, ``(counts (..., G, Q, 3), below (..., G, Q, cap),
+    above (..., G, Q, cap))``.  Keys outside [0, G) are ignored.  Reads the
+    data 3*G*Q times; ``kernels.ops.segmented_count_extract`` is the
+    kernel-backed seam."""
+    return segmented_select_ref(values, keys, pivots, cap)
 
 
 def resolve(pivot: torch.Tensor, k, lt, eq, below: torch.Tensor,

@@ -32,8 +32,7 @@
 //                              sentinel padded.
 // Two full reads of the data.  On heavy ties the threshold bin can hold the
 // whole shard: slower, still exact.  All offsets into the data are 64-bit.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -41,89 +40,11 @@ constexpr int BIN_BITS = 11;
 constexpr int NB = 1 << BIN_BITS;
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;
-constexpr int SORT_THREADS = 512;
-constexpr int KPT = 16;                          // keys each sort thread holds
-constexpr int SORT_TILE = SORT_THREADS * KPT;    // keys one block sorts: 8192
-constexpr int WARP_SPAN = 32 * KPT;              // keys one warp holds
-constexpr int STEP_THREADS = 256;
-
-// ---------------------------------------------------------------------------
-// dtypes: raw storage bits, order-preserving unsigned key, comparison value
-// ---------------------------------------------------------------------------
-
-struct F32 {
-  using Raw = uint32_t;
-  using Key = uint32_t;
-  using Val = float;
-  static constexpr int BITS = 32;
-  static constexpr Raw LO = 0xFF800000u;  // -inf
-  static constexpr Raw HI = 0x7F800000u;  // +inf
-  __device__ static Val val(Raw r) { return __uint_as_float(r); }
-  __device__ static Key key(Raw r) { return r ^ ((r >> 31) ? 0xFFFFFFFFu : 0x80000000u); }
-  __device__ static Raw raw(Key k) { return k ^ ((k >> 31) ? 0x80000000u : 0xFFFFFFFFu); }
-};
-
-struct BF16 {
-  using Raw = uint16_t;
-  using Key = uint16_t;
-  using Val = float;
-  static constexpr int BITS = 16;
-  static constexpr Raw LO = 0xFF80u;
-  static constexpr Raw HI = 0x7F80u;
-  __device__ static Val val(Raw r) { return __uint_as_float(uint32_t(r) << 16); }
-  __device__ static Key key(Raw r) { return Key(r ^ ((r >> 15) ? 0xFFFFu : 0x8000u)); }
-  __device__ static Raw raw(Key k) { return Raw(k ^ ((k >> 15) ? 0x8000u : 0xFFFFu)); }
-};
-
-struct I32 {
-  using Raw = uint32_t;
-  using Key = uint32_t;
-  using Val = int32_t;
-  static constexpr int BITS = 32;
-  static constexpr Raw LO = 0x80000000u;  // INT32_MIN
-  static constexpr Raw HI = 0x7FFFFFFFu;  // INT32_MAX
-  __device__ static Val val(Raw r) { return int32_t(r); }
-  __device__ static Key key(Raw r) { return r ^ 0x80000000u; }
-  __device__ static Raw raw(Key k) { return k ^ 0x80000000u; }
-};
-
-struct F64 {
-  using Raw = unsigned long long;
-  using Key = unsigned long long;
-  using Val = double;
-  static constexpr int BITS = 64;
-  static constexpr Raw LO = 0xFFF0000000000000ull;
-  static constexpr Raw HI = 0x7FF0000000000000ull;
-  __device__ static Val val(Raw r) { return __longlong_as_double((long long)r); }
-  __device__ static Key key(Raw r) { return r ^ ((r >> 63) ? ~0ull : (1ull << 63)); }
-  __device__ static Raw raw(Key k) { return k ^ ((k >> 63) ? (1ull << 63) : ~0ull); }
-};
 
 template <class Tr>
 __device__ __forceinline__ int bin_of(typename Tr::Key k) {
   return int(k >> (Tr::BITS - BIN_BITS));
 }
-
-// One 16-byte vector of the flat array: a single load when it lies wholly
-// inside the allocation, element loads at the ragged end.
-template <class Raw>
-struct Vec {
-  static constexpr int N = 16 / sizeof(Raw);
-  Raw r[N];
-  __device__ __forceinline__ void load(const Raw* __restrict__ x, int64_t v,
-                                       int64_t n_total) {
-    const int64_t g = v * N;
-    if (g + N <= n_total) {
-      union { uint4 u; Raw e[N]; } w;
-      w.u = __ldg(reinterpret_cast<const uint4*>(x) + v);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] = w.e[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] = (g + i < n_total) ? x[g + i] : Raw(0);
-    }
-  }
-};
 
 // ---------------------------------------------------------------------------
 // pass 1: eq counts + per-side key histograms
@@ -445,133 +366,6 @@ trim_kernel(typename Tr::Key* __restrict__ buf, int64_t L, const int* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// bitonic sort of every row of a (rows, L) key buffer, L a power of two
-// ---------------------------------------------------------------------------
-
-template <class Key>
-__device__ __forceinline__ void cmp_swap(Key* s, int64_t i, int64_t j, bool asc) {
-  const Key a = s[i], b = s[i + j];
-  if ((a > b) == asc) { s[i] = b; s[i + j] = a; }
-}
-
-__device__ __forceinline__ uint16_t shfl_xor(uint16_t v, int m) {
-  return uint16_t(__shfl_xor_sync(0xFFFFFFFFu, unsigned(v), m));
-}
-__device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
-  return __shfl_xor_sync(0xFFFFFFFFu, v, m);
-}
-__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
-  return __shfl_xor_sync(0xFFFFFFFFu, v, m);
-}
-
-// Shared-memory slot of tile position i: one pad word per 32 keeps both the
-// row-wise copies and the per-thread runs of KPT keys free of bank conflicts.
-__device__ __forceinline__ int pad_idx(int i) { return i + (i >> 5); }
-
-// Steps j = j_top, j_top/2, ..., 1 of bitonic stage k over one tile.  Thread
-// t holds tile positions t*KPT .. t*KPT+KPT-1 in registers: steps j < KPT
-// stay in registers, steps j < WARP_SPAN exchange between lanes of a warp,
-// wider steps go through shared memory.
-template <class Key>
-__device__ __forceinline__ void tile_stage(Key (&r)[KPT], Key* s, int64_t tile_off,
-                                           int64_t k, int j_top) {
-  const int me = threadIdx.x * KPT;
-  int j = j_top;
-  if (j >= WARP_SPAN) {
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) s[pad_idx(me + q)] = r[q];
-    __syncthreads();
-    for (; j >= WARP_SPAN; j >>= 1) {
-      for (int t = threadIdx.x; t < SORT_TILE / 2; t += SORT_THREADS) {
-        const int i = (t / j) * 2 * j + (t % j);
-        const Key a = s[pad_idx(i)], b = s[pad_idx(i + j)];
-        if ((a > b) == (((tile_off + i) & k) == 0)) {
-          s[pad_idx(i)] = b;
-          s[pad_idx(i + j)] = a;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(me + q)];
-    __syncthreads();
-  }
-  for (; j >= KPT; j >>= 1) {
-    const int m = j / KPT;                       // partner lane = lane ^ m
-    const bool lower = (threadIdx.x & m) == 0;
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) {
-      const Key o = shfl_xor(r[q], m);
-      const bool asc = ((tile_off + me + q) & k) == 0;
-      const Key mn = r[q] < o ? r[q] : o, mx = r[q] < o ? o : r[q];
-      r[q] = (lower == asc) ? mn : mx;
-    }
-  }
-#pragma unroll
-  for (int jj = KPT / 2; jj > 0; jj >>= 1) {
-    if (jj > j) continue;
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) {
-      if (q & jj) continue;
-      const bool asc = ((tile_off + me + q) & k) == 0;
-      const Key a = r[q], b = r[q + jj];
-      if ((a > b) == asc) { r[q] = b; r[q + jj] = a; }
-    }
-  }
-}
-
-// k_merge == 0: sort every tile (stages k = 2 .. SORT_TILE, each tile in the
-// direction its position in the row asks for).  k_merge > 0: finish stage
-// k_merge for the steps j < SORT_TILE.  Each row holds `len` keys to sort
-// (a power of two, at least SORT_TILE) at a stride of `stride` keys.
-template <class Key>
-__global__ void __launch_bounds__(SORT_THREADS)
-bitonic_tile(Key* __restrict__ buf, int64_t stride, int64_t len, int64_t k_merge) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Key* s = reinterpret_cast<Key*>(smem);
-  const int64_t tiles_per_row = len / SORT_TILE;
-  const int64_t tile_off = (blockIdx.x % tiles_per_row) * SORT_TILE;
-  const int64_t t0 = (blockIdx.x / tiles_per_row) * stride + tile_off;
-#pragma unroll
-  for (int c = 0; c < KPT; ++c) {
-    const int i = c * SORT_THREADS + threadIdx.x;
-    s[pad_idx(i)] = buf[t0 + i];
-  }
-  __syncthreads();
-  Key r[KPT];
-#pragma unroll
-  for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(threadIdx.x * KPT + q)];
-  __syncthreads();
-  if (k_merge == 0) {
-    for (int k = 2; k <= SORT_TILE; k <<= 1) tile_stage(r, s, tile_off, k, k >> 1);
-  } else {
-    tile_stage(r, s, tile_off, k_merge, SORT_TILE >> 1);
-  }
-#pragma unroll
-  for (int q = 0; q < KPT; ++q) s[pad_idx(threadIdx.x * KPT + q)] = r[q];
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < KPT; ++c) {
-    const int i = c * SORT_THREADS + threadIdx.x;
-    buf[t0 + i] = s[pad_idx(i)];
-  }
-}
-
-template <class Key>
-__global__ void __launch_bounds__(STEP_THREADS)
-bitonic_step(Key* __restrict__ buf, int64_t rows, int64_t stride, int64_t len,
-             int64_t k, int64_t j) {
-  const int64_t half = len / 2;
-  const int64_t pairs = rows * half;
-  for (int64_t t = int64_t(blockIdx.x) * STEP_THREADS + threadIdx.x; t < pairs;
-       t += int64_t(gridDim.x) * STEP_THREADS) {
-    const int64_t r = t / half, u = t % half;
-    const int64_t i = (u / j) * 2 * j + (u % j);
-    cmp_swap(buf + r * stride, i, j, (i & k) == 0);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // emit: first cap keys of each row back to values, sentinel padded
 // ---------------------------------------------------------------------------
 
@@ -602,11 +396,6 @@ __global__ void emit_kernel(const typename Tr::Key* __restrict__ buf, int64_t L,
 // host side
 // ---------------------------------------------------------------------------
 
-inline int grid_for(int64_t work, int threads) {
-  int64_t b = (work + threads - 1) / threads;
-  if (b > 65535LL * 64) b = 65535LL * 64;
-  return int(b < 1 ? 1 : b);
-}
 
 template <class Tr, int MAXQ>
 int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
@@ -652,31 +441,13 @@ int sort_emit_impl(int64_t rows, const int* cand, void* buf_v, int64_t L, int64_
   using Raw = typename Tr::Raw;
   using Key = typename Tr::Key;
   Key* buf = static_cast<Key*>(buf_v);
-  const unsigned tiles = unsigned(rows * len / SORT_TILE);
-  const size_t smem = size_t(SORT_TILE + SORT_TILE / 32) * sizeof(Key);
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(bitonic_tile<Key>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                int(smem))) != cudaSuccess)
-    return int(e);
-  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, len, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  for (int64_t k = 2 * int64_t(SORT_TILE); k <= len; k <<= 1) {
-    for (int64_t j = k >> 1; j >= SORT_TILE; j >>= 1) {
-      bitonic_step<Key><<<grid_for(rows * len / 2, STEP_THREADS), STEP_THREADS, 0, st>>>(
-          buf, rows, L, len, k, j);
-      if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-    }
-    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, L, len, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  }
+  const int e = sort_rows<Key>(buf, rows, L, len, st);
+  if (e) return e;
 
   emit_kernel<Tr><<<grid_for(rows * cap, 256), 256, 0, st>>>(
       buf, L, cand, rows, cap, static_cast<Raw*>(below), static_cast<Raw*>(above));
   return int(cudaGetLastError());
 }
-
-constexpr int kBadArgument = -1;
 
 }  // namespace
 

@@ -1,19 +1,24 @@
-"""Hopper kernels for the fused count + candidate-band round.
+"""Hopper kernels of ``repro/kernels/fused_select.py``.
 
-``fused_select``        replaces ``repro/kernels/fused_select.py::fused_select``
-                        (``_fused_kernel``): for every shard of a (P, n_i)
-                        batch, the int32 (lt, eq, gt) counts against one pivot
-                        plus both capped candidate bands.
+``fused_select``        replaces ``::fused_select`` (``_fused_kernel``): for
+                        every shard of a (P, n_i) batch, the int32 (lt, eq,
+                        gt) counts against one pivot plus both capped
+                        candidate bands.
 ``fused_select_multi``  replaces ``::fused_select_multi``
                         (``_fused_multi_kernel``): the same for Q pivots from
                         the same passes over the data (up to 8 pivots a call).
+``byte_histogram``      replaces ``::byte_histogram``
+                        (``_byte_histogram_kernel``): the 256-bin histogram
+                        of one byte of the sortable-uint32 key among the
+                        elements matching a prefix.  ``radix_walk`` chains
+                        four launches into the exact k-th smallest key with
+                        no host sync.
 
-Both are one CUDA C++ source, ``csrc/fused_select.cu``, compiled with nvcc
-for ``sm_90a`` into a shared library at first use and bound with ctypes (a
-plain C interface: raw pointers plus the current stream; the C function
-returns the CUDA error code and the wrapper raises on anything but 0).  The
-source's header says what bounds the kernels and how the design answers it.
-Plain versions: ``kernels/ref.py``.
+The first two are one CUDA C++ source, ``csrc/fused_select.cu``; the third
+is ``csrc/byte_histogram.cu``.  ``cuda_build`` compiles them for ``sm_90a``
+at first use and binds them with ctypes.  Each source's header says what
+bounds its kernels and how the design answers it.  Plain versions:
+``kernels/ref.py``.
 
 A wrapper takes CUDA tensors only and raises otherwise; choosing the plain
 version for a CPU tensor is ``kernels/dispatch.py``'s job.  Every launch adds
@@ -21,102 +26,42 @@ one to its kernel's count in ``LAUNCHES``.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
-SOURCE = Path(__file__).with_name("csrc") / "fused_select.cu"
-BUILD_DIR = Path(__file__).with_name("_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import cuda_build as cb
 
 MULTI_MAX_PIVOTS = 8            # pivots one fused_select_multi launch takes
 PASSES_PER_LAUNCH = 2           # full reads of the data per launch
-_BLOCKS_PER_SM = 4
-_MIN_BLOCK_ELEMS = 16384
+_SIGNATURES = {
+    "fs_count": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
+                  cb.P, cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
+    "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
+                    cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P, cb.P], cb.I),
+    "fs_sort_emit": ([cb.I, cb.I, cb.L, cb.P, cb.P, cb.L, cb.L, cb.L, cb.P,
+                      cb.P, cb.P], cb.I),
+    "fs_num_bins": ([], cb.I),
+    "fs_sort_tile": ([], cb.I),
+}
+_HIST_SIGNATURES = {
+    "bh_histogram": ([cb.I, cb.P, cb.L, cb.P, cb.I, cb.P, cb.I, cb.P], cb.I),
+    "bh_radix_step": ([cb.P, cb.P, cb.P, cb.I, cb.P], cb.I),
+}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
-               torch.float64: 3}
-_KEY_DTYPE = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
-              torch.int32: torch.int32, torch.float64: torch.int64}
-
-LAUNCHES = {"fused_select": 0, "fused_select_multi": 0}
-_lib_handle = None
-
-
-def reset_launches() -> None:
-    """Zero both kernels' launch counts."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def launches() -> dict:
-    """Launches of each kernel since the last reset."""
-    return dict(LAUNCHES)
+LAUNCHES = {"fused_select": 0, "fused_select_multi": 0, "byte_histogram": 0}
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found: the fused_select kernels are "
-                           "built from source at first use")
-    return found
-
-
-def build() -> Path:
-    """Compile ``csrc/fused_select.cu`` (once per source and flag set) and
-    return the shared library's path.  nvcc's resource report (``-Xptxas
-    -v``) is kept beside it as ``<library>.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"fused_select_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    lib.with_name(lib.name + ".log").write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+def build():
+    """Build ``csrc/fused_select.cu`` if needed and return the library's
+    path (``scripts/compare_kernels.py`` builds each checkout this way)."""
+    return cb.build("fused_select.cu")[0]
 
 
 def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fs_count.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, i32,
-                                 vp, vp, vp, vp, vp, vp, vp]
-        lib.fs_count.restype = i32
-        lib.fs_compact.argtypes = [i32, i32, vp, i64, i64, vp, i32, i32, i32,
-                                   vp, vp, vp, vp, vp, i64, i32, vp, vp]
-        lib.fs_compact.restype = i32
-        lib.fs_sort_emit.argtypes = [i32, i32, i64, vp, vp, i64, i64, i64, vp,
-                                     vp, vp]
-        lib.fs_sort_emit.restype = i32
-        for layout in (lib.fs_num_bins, lib.fs_sort_tile):
-            layout.argtypes = []
-            layout.restype = i32
-        _lib_handle = lib
-    return _lib_handle
+    return cb.load("fused_select.cu", _SIGNATURES)
 
 
-def _check(code: int, what: str) -> None:
-    if code == -1:
-        raise ValueError(f"{what}: arguments out of the kernel's range")
-    if code:
-        raise RuntimeError(f"{what}: CUDA error {code}")
+def _hist_lib():
+    return cb.load("byte_histogram.cu", _HIST_SIGNATURES)
 
 
 def _prepare(x: torch.Tensor, pivots: torch.Tensor, cap: int):
@@ -125,7 +70,7 @@ def _prepare(x: torch.Tensor, pivots: torch.Tensor, cap: int):
                          f"{x.device}")
     if x.dim() != 2:
         raise ValueError(f"x must be (P, n_i), got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in cb.KEY_DTYPE:
         raise TypeError(f"unsupported dtype {x.dtype}")
     P, n_i = x.shape
     if not (1 <= P <= 65535 and 1 <= n_i < 2 ** 31):
@@ -133,9 +78,7 @@ def _prepare(x: torch.Tensor, pivots: torch.Tensor, cap: int):
                          f"n_i < 2^31")
     if not 1 <= cap <= n_i:
         raise ValueError(f"cap must be in [1, {n_i}], got {cap}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:           # the kernels load 16-byte vectors
-        x = x.clone()
+    x = cb.aligned(x)
     pivots = pivots.reshape(-1).to(device=x.device, dtype=x.dtype).contiguous()
     if pivots.numel() < 1:
         raise ValueError("at least one pivot is needed")
@@ -153,10 +96,8 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
     dev = x.device
     lib = _lib()
     with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        bps = max(1, min(-(-_BLOCKS_PER_SM * sms // P),
-                         -(-n_i // _MIN_BLOCK_ELEMS), 65535))
+        stream = cb.stream(dev)
+        bps = cb.shard_blocks(dev, P, n_i)
         i32 = dict(dtype=torch.int32, device=dev)
         hist = torch.zeros((P, Q, 2, lib.fs_num_bins()), **i32)
         eq = torch.zeros((P, Q), **i32)
@@ -164,8 +105,8 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         cand = torch.empty((P, Q, 2), **i32)
         counts = torch.empty((P, Q, 3), **i32)
         max_cand = torch.zeros((1,), **i32)
-        code = _DTYPE_CODE[x.dtype]
-        _check(lib.fs_count(code, maxq, x.data_ptr(), P, n_i,
+        code = cb.DTYPE_CODE[x.dtype]
+        cb.check(lib.fs_count(code, maxq, x.data_ptr(), P, n_i,
                             pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
                             eq.data_ptr(), thr.data_ptr(), cand.data_ptr(),
                             counts.data_ptr(), max_cand.data_ptr(), stream),
@@ -178,10 +119,10 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         # the sorted rows
         trim = L > max(_pow2_at_least(cap), tile)
         rows = P * Q * 2
-        buf = torch.full((rows, L), -1, dtype=_KEY_DTYPE[x.dtype], device=dev)
+        buf = torch.full((rows, L), -1, dtype=cb.KEY_DTYPE[x.dtype], device=dev)
         cursor = torch.zeros((rows,), **i32)
         max_kept = torch.zeros((1,), **i32)
-        _check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
+        cb.check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
                               pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
                               thr.data_ptr(), cand.data_ptr(),
                               cursor.data_ptr(), buf.data_ptr(), L, int(trim),
@@ -193,7 +134,7 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
                   else L)
         below = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
-        _check(lib.fs_sort_emit(code, maxq, rows, cand.data_ptr(),
+        cb.check(lib.fs_sort_emit(code, maxq, rows, cand.data_ptr(),
                                 buf.data_ptr(), L, length, cap,
                                 below.data_ptr(), above.data_ptr(), stream),
                "fused_select band sort")
@@ -230,3 +171,67 @@ def fused_select_multi(x: torch.Tensor, pivots: torch.Tensor, cap: int):
 def launches_for(num_pivots: int) -> int:
     """Launches ``fused_select_multi`` makes for ``num_pivots`` pivots."""
     return -(-num_pivots // MULTI_MAX_PIVOTS)
+
+
+RADIX_SHIFTS = (24, 16, 8, 0)   # the bytes of the key, high to low
+
+
+def _hist_input(x: torch.Tensor) -> torch.Tensor:
+    if not x.is_cuda:
+        raise ValueError(f"byte_histogram takes CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.int32,
+                       torch.uint32):
+        raise TypeError(f"byte_histogram takes float32, bfloat16, int32 or "
+                        f"sortable uint32 data, got {x.dtype}")
+    if not 1 <= x.numel() < 2 ** 31:
+        raise ValueError(f"{x.numel()} elements outside 1 <= n < 2^31")
+    return cb.aligned(x.reshape(-1))
+
+
+def _histogram_into(x: torch.Tensor, params: torch.Tensor, shift: int,
+                    hist: torch.Tensor) -> None:
+    """One launch: adds the histogram of byte ``shift`` of the keys matching
+    ``params = (prefix, mask)`` (uint32 bits in an int32 tensor) to ``hist``.
+    x is float32, bfloat16 or int32 (keys formed by to_sortable_u32) or
+    uint32 (already keys), flat, aligned."""
+    dev = x.device
+    with torch.cuda.device(dev):
+        n = x.numel()
+        blocks = cb.stream_blocks(dev, -(-n * x.element_size() // 16))
+        cb.check(_hist_lib().bh_histogram(
+            cb.DTYPE_CODE[x.dtype], x.data_ptr(), n, params.data_ptr(), shift,
+            hist.data_ptr(), blocks, cb.stream(dev)), "byte_histogram")
+    LAUNCHES["byte_histogram"] += 1
+
+
+def byte_histogram(x: torch.Tensor, prefix, mask, shift: int) -> torch.Tensor:
+    """(256,) int32 histogram of byte ``(u >> shift) & 0xFF`` over the keys
+    u of the CUDA tensor x with ``(u & mask) == prefix``, with
+    ``ref.byte_histogram_ref`` semantics; x is sortable uint32 keys, or
+    float32/bfloat16/int32 data whose keys the kernel forms itself."""
+    x = _hist_input(x)
+    params = torch.tensor([prefix, mask], dtype=torch.int64).to(
+        torch.int32).to(x.device)
+    hist = torch.zeros(256, dtype=torch.int32, device=x.device)
+    _histogram_into(x, params, shift, hist)
+    return hist
+
+
+def radix_walk(x: torch.Tensor, k) -> torch.Tensor:
+    """The sortable-uint32 key of the k-th smallest (1-based) element of the
+    CUDA tensor x, as int32 bits of a 0-d tensor: four ``byte_histogram``
+    launches, each followed by a one-thread step that picks the byte,
+    lowers k and extends the prefix on the device (``ref.radix_walk_ref``
+    semantics, a k outside [1, n] included)."""
+    x = _hist_input(x)
+    dev = x.device
+    params = torch.zeros(2, dtype=torch.int32, device=dev)
+    kk = torch.as_tensor(k, dtype=torch.int32).reshape(1).to(dev)
+    hist = torch.zeros((len(RADIX_SHIFTS), 256), dtype=torch.int32, device=dev)
+    for i, shift in enumerate(RADIX_SHIFTS):
+        _histogram_into(x, params, shift, hist[i])
+        with torch.cuda.device(dev):
+            cb.check(_hist_lib().bh_radix_step(
+                hist[i].data_ptr(), kk.data_ptr(), params.data_ptr(), shift,
+                cb.stream(dev)), "byte_histogram radix step")
+    return params[0]

@@ -1,18 +1,40 @@
 """Kernel-layer operations: device-dispatched wrappers and pass accounting.
 
+``count3`` / ``band_count``    (lt, eq, gt) counts and the open-band count of
+                               a flat array, one read each.
 ``fused_count_extract``        the speculative GK Select round over a batch
                                of shards: (lt, eq, gt) counts and both capped
                                candidate bands.
 ``fused_count_extract_multi``  the same against Q pivots.
+``segmented_count_extract``    the grouped engine's round: counts and both
+                               bands for every (group, level) of a (G, Q)
+                               pivot grid, restricted to each group's keys.
+``byte_histogram``             256-bin histogram of one byte of the
+                               sortable-u32 key within a prefix group.
+``radix_select_kth``           exact k-th smallest in 4 byte-histogram passes,
+                               no sort; ``radix_select_kth_bitwise`` the
+                               32-pass bit-at-a-time search it replaces.
 ``to_sortable``/``from_sortable``  the order-preserving unsigned key
-                               transform (16-bit for bf16, 32-bit for f32 and
-                               int32, 64-bit for f64).
+                               transform of the port's kernels (16-bit for
+                               bf16, 32-bit for f32 and int32, 64-bit for f64).
+``to_sortable_u32``/``from_sortable_u32``  JAX's 32-bit transform (bf16 and
+                               f16 through f32, f64 refused), the radix
+                               selects' domain.
 
-Unlike the JAX package, which vmaps a per-shard call, every wrapper takes
-the whole (P, n_i) batch and launches once for all P shards.  Each wrapper
+Unlike the JAX package, which vmaps a per-shard call, the band wrappers take
+the whole (P, n_i) batch and launch once for all P shards.  Each wrapper
 ticks the pass counter by the full reads of the data that the chosen
-implementation really makes: 2 per Hopper launch (histogram pass +
-compaction pass), 3 per pivot for the plain version (count + two top-k).
+implementation really makes:
+  count3, band_count, byte_histogram   1 (kernel and plain alike);
+  fused_count_extract(_multi)          2 per Hopper launch (histogram pass +
+                                       compaction pass), 3 per pivot plain;
+  segmented_count_extract              per Hopper launch, one histogram pass
+                                       per slice of groups that fits in
+                                       shared memory (1 at G*Q = 32*2) plus
+                                       the compaction pass; 3*G*Q plain;
+  radix_select_kth                     4 (the kernel forms the keys from x),
+                                       5 plain (the key transform is a pass);
+  radix_select_kth_bitwise             32 kernel, 33 plain.
 """
 from __future__ import annotations
 
@@ -21,8 +43,11 @@ import threading
 import torch
 
 from . import dispatch
-from .fused_select import PASSES_PER_LAUNCH, launches_for
-from .ref import total_order_key, from_total_order_key
+from .fused_select import PASSES_PER_LAUNCH, RADIX_SHIFTS, launches_for
+from .partition_count import BISECT_STEPS
+from .ref import (total_order_key, from_total_order_key, to_sortable_u32,
+                  from_sortable_u32)
+from .segmented_select import reads_per_launch
 
 # Lock-guarded so that callers on several threads never drop a tick.
 _HBM_PASSES = {"total": 0}
@@ -51,6 +76,21 @@ def _batched(x: torch.Tensor):
     return (x.unsqueeze(0), True) if x.dim() == 1 else (x, False)
 
 
+def count3(x: torch.Tensor, pivot) -> torch.Tensor:
+    """(lt, eq, gt) int32 counts of the flat x against the pivot
+    (kernel-backed ``local_ops.count3``); uint32 x compares unsigned."""
+    out, _ = dispatch.run_partition_count(x.reshape(-1), pivot)
+    _tick(1)
+    return out
+
+
+def band_count(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """0-d int32 count of the flat x inside the open band (lo, hi)."""
+    out, _ = dispatch.run_band_count(x.reshape(-1), lo, hi)
+    _tick(1)
+    return out
+
+
 def fused_count_extract(x: torch.Tensor, pivot, cap: int):
     """``(counts, below, above)`` of each shard of x (P, n_i) against one
     pivot, with the semantics of ``(local_ops.count3, local_ops.extract_below,
@@ -71,6 +111,84 @@ def fused_count_extract_multi(x: torch.Tensor, pivots, cap: int):
     _tick(PASSES_PER_LAUNCH * launches_for(q) if route == dispatch.KERNEL
           else 3 * q)
     return tuple(t[0] for t in out) if flat else out
+
+
+def segmented_count_extract(values: torch.Tensor, keys: torch.Tensor,
+                            pivots, cap: int):
+    """The grouped engine's round: ``(counts (P, G, Q, 3), below (P, G, Q,
+    cap), above (P, G, Q, cap))`` of each shard of values (P, n_i) with int32
+    keys, per (group, level) of the (G, Q) pivots, with the semantics of
+    ``local_ops.grouped_count_extract``.  Flat values (n,) are one shard and
+    drop the P axis."""
+    vb, flat = _batched(values)
+    kb, _ = _batched(keys)
+    out, route = dispatch.run_segmented_select(vb, kb, pivots, cap)
+    G, Q = out[0].shape[1:3]
+    _tick(reads_per_launch(vb.dtype, G, Q) if route == dispatch.KERNEL
+          else 3 * G * Q)
+    return tuple(t[0] for t in out) if flat else out
+
+
+def byte_histogram(u: torch.Tensor, prefix, mask, *, shift: int) -> torch.Tensor:
+    """(256,) int32 histogram of byte ``(u >> shift) & 0xFF`` among the
+    uint32 elements matching ``(u & mask) == prefix``.  The input must
+    already be in the sortable-u32 domain."""
+    if u.dtype != torch.uint32:
+        raise TypeError(f"byte_histogram wants sortable uint32, got {u.dtype}")
+    out, _ = dispatch.run_byte_histogram(u.reshape(-1), int(prefix),
+                                         int(mask), shift)
+    _tick(1)
+    return out
+
+
+RADIX_PASSES = len(RADIX_SHIFTS)   # 32 bits / 8 bits per histogram pass
+
+
+def _to_dtype_like_jax(v: torch.Tensor, dtype) -> torch.Tensor:
+    """``v.astype(dtype)`` as JAX casts float32: a NaN keeps its sign in
+    bf16 (torch keeps the payload's top bits instead).  No host sync."""
+    out = v.to(dtype)
+    if dtype != torch.bfloat16:
+        return out
+    nan_bits = torch.where(torch.signbit(v), -0x40, 0x7FC0).to(torch.int16)
+    return torch.where(torch.isnan(v), nan_bits,
+                       out.view(torch.int16)).view(dtype)
+
+
+def _selected(bits: torch.Tensor, dtype) -> torch.Tensor:
+    out = from_sortable_u32(bits.view(torch.uint32), dtype)
+    return _to_dtype_like_jax(out, dtype)
+
+
+def radix_select_kth(x: torch.Tensor, k) -> torch.Tensor:
+    """Exact k-th smallest (1-based) of the flat x (float32, bfloat16 or
+    int32) in 4 byte-histogram passes: no sort, no data movement.  Each pass
+    pins one byte of the answer's sortable-u32 key.  Bit-identical to JAX's
+    ``ops.radix_select_kth``, a k outside [1, n] included."""
+    bits, route = dispatch.run_radix_walk(x.reshape(-1), k)
+    _tick(RADIX_PASSES + (route == dispatch.PLAIN))
+    return _selected(bits, x.dtype)
+
+
+def radix_select_kth_bitwise(x: torch.Tensor, k) -> torch.Tensor:
+    """The 32-pass bit-at-a-time search over the sortable-u32 domain that
+    ``radix_select_kth`` replaces, kept as its baseline; bit-identical to
+    JAX's ``ops.radix_select_kth_bitwise``."""
+    bits, route = dispatch.run_bisect(x.reshape(-1), k)
+    _tick(BISECT_STEPS + (route == dispatch.PLAIN))
+    return _selected(bits, x.dtype)
+
+
+def make_count3_fn():
+    """The count seam with ``local_ops.count3``'s signature
+    ``(x, pivot) -> (lt, eq, gt)``, one read per call."""
+    return count3
+
+
+def make_segmented_fn():
+    """The grouped count+extract seam ``(values, keys, pivots, cap) ->
+    (counts (.., G, Q, 3), below (.., G, Q, cap), above (.., G, Q, cap))``."""
+    return segmented_count_extract
 
 
 def make_fused_fn():

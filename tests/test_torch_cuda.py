@@ -13,7 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro_torch.kernels as K                               # noqa: E402
 from repro_torch.kernels import fused_select as fs, ops, ref  # noqa: E402
+from repro_torch.kernels import band_count as bc              # noqa: E402
+from repro_torch.kernels import partition_count as pc         # noqa: E402
+from repro_torch.kernels import segmented_select as ss        # noqa: E402
 
 N = 1001                        # not a multiple of any vector width
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
@@ -62,7 +66,7 @@ def _pivots(x):
 def test_kernels_match_plain_on_card(cuda, dtype):
     x = _data(dtype, cuda)
     pv = _pivots(x)
-    fs.reset_launches()
+    K.reset_launches()
     for cap in (1, 37, N):
         for i in range(pv.numel()):
             got = fs.fused_select(x, pv[i], cap)
@@ -74,8 +78,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         want = ref.fused_select_multi_ref(x, multi, cap)
         for g, w in zip(got, want):
             assert _bits(g) == _bits(w), (dtype, cap)
-    assert fs.launches()["fused_select"] == 3 * pv.numel()
-    assert fs.launches()["fused_select_multi"] == 3 * fs.launches_for(
+    assert K.launches()["fused_select"] == 3 * pv.numel()
+    assert K.launches()["fused_select_multi"] == 3 * fs.launches_for(
         pv.numel() + 3)
 
 
@@ -88,3 +92,67 @@ def test_kernel_route_counts_two_passes(cuda):
     ops.reset_hbm_passes()
     ops.fused_count_extract_multi(x, x[0, :5], 64)
     assert ops.hbm_passes() == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_counting_kernels_match_plain_on_card(cuda, dtype):
+    x = _data(dtype, cuda)
+    flat = x.reshape(-1)
+    pv = _pivots(x)
+    for i in range(pv.numel()):
+        assert _bits(pc.partition_count(x, pv[i])) == _bits(
+            ref.partition_count_ref(flat, pv[i])), (dtype, i)
+        lo, hi = pv[i], pv[pv.numel() - 1 - i]
+        assert _bits(bc.band_count(x, lo, hi)) == _bits(
+            ref.band_count_ref(flat, lo, hi)), (dtype, i)
+    if dtype == torch.float64:             # no sortable-u32 domain
+        return
+    u = ref.to_sortable_u32(x)
+    top = int(ref.u32_as_int64(u.reshape(-1))[N]) & 0xFFFF0000
+    for prefix, mask, shift in ((0, 0, 24), (top, 0xFFFF0000, 8)):
+        want = ref.byte_histogram_ref(u, prefix, mask, shift)
+        for src in (x, u):
+            assert _bits(fs.byte_histogram(src, prefix, mask, shift)) == \
+                _bits(want), (dtype, src.dtype, shift)
+    n = x.numel()
+    for k in (0, 1, n // 2, n, n + 1):
+        assert _bits(fs.radix_walk(x, k)) == _bits(ref.radix_walk_ref(u, k))
+        assert _bits(pc.bisect(x, k)) == _bits(ref.bisect_ref(u, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_kernel_matches_plain_on_card(cuda, dtype):
+    x = _data(dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pv = _pivots(x)
+    for G, Q, caps in ((4, 2, (1, 37, N)), (1, 1, (5,)), (100, 1, (20,))):
+        keys = torch.randint(-1, G + 1, x.shape, generator=gen, device=cuda,
+                             dtype=torch.int32)
+        grid = pv[torch.arange(G * Q, device=cuda) % pv.numel()].reshape(G, Q)
+        for cap in caps:
+            got = ss.segmented_select(x, keys, grid, cap)
+            want = ref.segmented_select_ref(x, keys, grid, cap)
+            for g, w in zip(got, want):
+                assert _bits(g) == _bits(w), (dtype, G, Q, cap)
+
+
+@pytest.mark.cuda
+def test_new_kernel_routes_count_their_reads(cuda):
+    x = torch.randn(4, 5000, device=cuda)
+    keys = torch.randint(0, 3, (4, 5000), device=cuda, dtype=torch.int32)
+    K.reset_launches()
+    cases = ((lambda: ops.count3(x, x[0, 0]), 1),
+             (lambda: ops.band_count(x, -1.0, 1.0), 1),
+             (lambda: ops.radix_select_kth(x, 7), 4),
+             (lambda: ops.radix_select_kth_bitwise(x, 7), 32),
+             (lambda: ops.segmented_count_extract(x, keys, x[0, :6].reshape(
+                 3, 2), 64), 2))
+    for call, passes in cases:
+        ops.reset_hbm_passes()
+        call()
+        assert ops.hbm_passes() == passes
+    assert K.launches() == {"fused_select": 0, "fused_select_multi": 0,
+                            "byte_histogram": 4, "partition_count": 33,
+                            "band_count": 1, "segmented_select": 1}

@@ -181,12 +181,21 @@ def test_sortable_keys(dtype):
 
 def test_pass_counter_counts_plain_passes():
     x = torch.randn(3, 300)
-    ops.reset_hbm_passes()
-    ops.fused_count_extract(x, x[0, 0], 10)
-    assert ops.hbm_passes() == 3
-    ops.reset_hbm_passes()
-    ops.fused_count_extract_multi(x, x[0, :4], 10)
-    assert ops.hbm_passes() == 12
+    keys = torch.randint(0, 2, (3, 300), dtype=torch.int32)
+    cases = ((lambda: ops.fused_count_extract(x, x[0, 0], 10), 3),
+             (lambda: ops.fused_count_extract_multi(x, x[0, :4], 10), 12),
+             (lambda: ops.count3(x, x[0, 0]), 1),
+             (lambda: ops.band_count(x, -1.0, 1.0), 1),
+             (lambda: ops.byte_histogram(ops.to_sortable_u32(x), 0, 0,
+                                         shift=24), 1),
+             (lambda: ops.radix_select_kth(x, 5), ops.RADIX_PASSES + 1),
+             (lambda: ops.radix_select_kth_bitwise(x, 5), 33),
+             (lambda: ops.segmented_count_extract(x, keys, x[0, :6].reshape(
+                 2, 3), 10), 18))
+    for call, passes in cases:
+        ops.reset_hbm_passes()
+        call()
+        assert ops.hbm_passes() == passes
     assert fs.launches_for(5) == 1 and fs.launches_for(9) == 2
 
 
@@ -198,6 +207,17 @@ def test_dispatch_routes_by_device():
         fs.fused_select(torch.zeros(2, 8), torch.tensor(0.0), 2)
     with pytest.raises(ValueError):
         ref.block_topk_ref(torch.zeros(8), torch.tensor(0.0), 9, True)
+    x = torch.randn(64)
+    v, k = x.reshape(2, 32), torch.zeros(2, 32, dtype=torch.int32)
+    for run, args in ((dispatch.run_partition_count, (x, 0.0)),
+                      (dispatch.run_band_count, (x, -1.0, 1.0)),
+                      (dispatch.run_byte_histogram,
+                       (ops.to_sortable_u32(x), 0, 0, 24)),
+                      (dispatch.run_radix_walk, (x, 3)),
+                      (dispatch.run_bisect, (x, 3)),
+                      (dispatch.run_segmented_select,
+                       (v, k, torch.zeros(1, 1), 4))):
+        assert run(*args)[1] == dispatch.PLAIN
 
 
 def test_make_fused_fns_are_the_seams():
@@ -208,3 +228,123 @@ def test_make_fused_fns_are_the_seams():
     m1 = ops.make_fused_multi_fn()(x, x[0, :2], 5)
     m2 = ops.fused_count_extract_multi(x, x[0, :2], 5)
     assert all(torch.equal(a, b) for a, b in zip(m1, m2))
+    assert torch.equal(ops.make_count3_fn()(x, x[0, 3]), ops.count3(x, x[0, 3]))
+    keys = torch.randint(-1, 3, (2, 64), dtype=torch.int32)
+    pivots = x[0, :4].reshape(2, 2)
+    s1 = ops.make_segmented_fn()(x, keys, pivots, 5)
+    s2 = ops.segmented_count_extract(x, keys, pivots, 5)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    flat = ops.segmented_count_extract(x[1], keys[1], pivots, 5)
+    assert all(torch.equal(a, b[1]) for a, b in zip(flat, s2))
+
+# ---------------------------------------------------------------------------
+# counting, histogram, segmented and radix entry points (plain) vs JAX
+# ---------------------------------------------------------------------------
+
+
+def _scalar(a):
+    return as_device_tensor(np.asarray(a).reshape(1), "cpu")[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_count3_and_band_count_match_jax(dtype):
+    x = _data(dtype, seed=7)
+    pv = _pivots(x)
+    xt = as_device_tensor(x, "cpu")
+    with _x64(dtype):
+        jx = jnp.asarray(x)
+        for i, p in enumerate(pv):
+            q = pv[len(pv) - 1 - i]
+            assert tbits(ops.count3(xt, _scalar(p))) == jbits(
+                jops.count3(jx, jnp.asarray(p), backend="jnp")), (dtype, p)
+            assert tbits(ops.band_count(xt, _scalar(p), _scalar(q))) == jbits(
+                jops.band_count(jx, jnp.asarray(p), jnp.asarray(q),
+                                backend="jnp")), (dtype, p, q)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "int32"))
+def test_byte_histogram_and_radix_selects_match_jax(dtype):
+    x = _data(dtype, seed=8)                    # both zeros, both sentinels
+    xt = as_device_tensor(x, "cpu")
+    ju = jops.to_sortable_u32(jnp.asarray(x))
+    u = ops.to_sortable_u32(xt)
+    assert u.dtype == torch.uint32
+    assert u.numpy().tobytes() == np.asarray(ju).tobytes()
+    back = ops.from_sortable_u32(u, xt.dtype)
+    assert tbits(back) == jbits(jops.from_sortable_u32(ju, jnp.asarray(x).dtype))
+    top = int(np.asarray(ju)[N // 3])
+    for prefix, mask, shift in ((0, 0, 24), (top & 0xFF000000, 0xFF000000, 16),
+                                (top & 0xFFFF0000, 0xFFFF0000, 8),
+                                (top & 0xFFFFFF00, 0xFFFFFF00, 0)):
+        want = jops.byte_histogram(ju, prefix, mask, shift=shift,
+                                   backend="jnp")
+        assert tbits(ops.byte_histogram(u, prefix, mask, shift=shift)) == \
+            jbits(want), (prefix, mask, shift)
+    jx = jnp.asarray(x)
+    for k in (-1, 0, 1, 2, N // 2, N - 1, N, N + 1):
+        assert tbits(ops.radix_select_kth(xt, k)) == jbits(
+            jops.radix_select_kth(jx, k, backend="jnp")), k
+        assert tbits(ops.radix_select_kth_bitwise(xt, k)) == jbits(
+            jops.radix_select_kth_bitwise(jx, k, backend="jnp")), k
+
+
+def test_sortable_u32_refuses_float64():
+    x = torch.zeros(3, dtype=torch.float64)
+    for call in (ops.to_sortable_u32, lambda t: ops.radix_select_kth(t, 1),
+                 lambda t: ops.radix_select_kth_bitwise(t, 1)):
+        with pytest.raises(TypeError):
+            call(x)
+    with pytest.raises(TypeError):              # the histogram takes keys
+        ops.byte_histogram(torch.zeros(3), 0, 0, shift=24)
+
+
+def _grid(x, G, Q):
+    pv = _pivots(x)
+    return pv[np.arange(G * Q) % len(pv)].reshape(G, Q)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_count_extract_matches_jax(dtype):
+    x = _data(dtype, seed=9)
+    rng = np.random.default_rng(9)
+    keys = rng.integers(-1, 5, size=N).astype(np.int32)   # -1, 4: no group
+    keys[keys == 2] = 4                                   # group 2 is empty
+    grid = _grid(x, 4, 3)
+    xt, kt = as_device_tensor(x, "cpu"), torch.from_numpy(keys)
+    gt = as_device_tensor(grid, "cpu")
+    with _x64(dtype):
+        for cap in (1, 37, N):
+            want = jops.segmented_count_extract(
+                jnp.asarray(x), jnp.asarray(keys), jnp.asarray(grid), cap,
+                backend="jnp")
+            got = ops.segmented_count_extract(xt, kt, gt, cap)
+            for g, w in zip(got, want):
+                assert tbits(g) == jbits(w), (dtype, cap)
+
+
+def test_interpret_counting_kernels_match_plain():
+    """The four Pallas kernels themselves (interpret mode) against the
+    port: partition_count, band_count, byte_histogram, segmented_select."""
+    x = _data("float32", seed=10)
+    jx, xt = jnp.asarray(x), as_device_tensor(x, "cpu")
+    p, q = x[500], x[17]
+    assert tbits(ops.count3(xt, _scalar(p))) == jbits(
+        jops.count3(jx, jnp.asarray(p), backend="interpret"))
+    assert tbits(ops.band_count(xt, _scalar(q), _scalar(p))) == jbits(
+        jops.band_count(jx, jnp.asarray(q), jnp.asarray(p),
+                        backend="interpret"))
+    ju = jops.to_sortable_u32(jx)
+    top = int(np.asarray(ju)[3]) & 0xFF000000
+    assert tbits(ops.byte_histogram(ops.to_sortable_u32(xt), top, 0xFF000000,
+                                    shift=16)) == jbits(
+        jops.byte_histogram(ju, top, 0xFF000000, shift=16,
+                            backend="interpret"))
+    keys = (np.arange(N) % 3 - 1).astype(np.int32)       # -1: no group
+    grid = np.array([[p, q], [q, x[900]]], dtype=np.float32)
+    want = jops.segmented_count_extract(jx, jnp.asarray(keys),
+                                        jnp.asarray(grid), 37,
+                                        backend="interpret")
+    got = ops.segmented_count_extract(xt, torch.from_numpy(keys),
+                                      torch.from_numpy(grid), 37)
+    for g, w in zip(got, want):
+        assert tbits(g) == jbits(w)

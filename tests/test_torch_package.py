@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch                                            # noqa: E402
+from repro_torch.kernels import cuda_build                    # noqa: E402
 from repro_torch.kernels import fused_select as fs            # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,8 +36,12 @@ def _env(**extra):
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core.select, "
-            "repro_torch.core.baselines, repro_torch.kernels.dispatch, "
-            "repro_torch.kernels.ops, repro_torch.kernels.fused_select\n"
+            "repro_torch.core.baselines, repro_torch.core.grouped, "
+            "repro_torch.core.engine, repro_torch.kernels.dispatch, "
+            "repro_torch.kernels.ops, repro_torch.kernels.fused_select, "
+            "repro_torch.kernels.partition_count, "
+            "repro_torch.kernels.band_count, "
+            "repro_torch.kernels.segmented_select\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
@@ -68,9 +73,14 @@ def test_no_source_imports_jax_or_repro():
 
 def test_layout_mirrors_the_jax_package():
     for rel in ("core/local_ops.py", "core/sketch.py", "core/select.py",
-                "core/baselines.py", "kernels/ref.py", "kernels/ops.py",
-                "kernels/dispatch.py", "kernels/fused_select.py",
-                "kernels/csrc/fused_select.cu"):
+                "core/baselines.py", "core/engine.py", "core/grouped.py",
+                "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
+                "kernels/fused_select.py", "kernels/partition_count.py",
+                "kernels/band_count.py", "kernels/segmented_select.py",
+                "kernels/csrc/fused_select.cu",
+                "kernels/csrc/partition_count.cu",
+                "kernels/csrc/band_count.cu", "kernels/csrc/byte_histogram.cu",
+                "kernels/csrc/segmented_select.cu"):
         assert os.path.exists(os.path.join(PKG, rel)), rel
     for name in repro_torch.__all__:
         assert hasattr(repro_torch, name), name
@@ -81,8 +91,11 @@ def test_layout_mirrors_the_jax_package():
 def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
     x = np.arange(16, dtype=np.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = (np.arange(16) % 3).astype(np.int32).reshape(2, 8)
     for call in (lambda **kw: repro_torch.exact_quantile(x, 0.5, **kw),
-                 lambda **kw: repro_torch.exact_quantile_rank(x, 3, **kw)):
+                 lambda **kw: repro_torch.exact_quantile_rank(x, 3, **kw),
+                 lambda **kw: repro_torch.gk_select_grouped(
+                     x.reshape(2, 8), keys, (0.5,), num_groups=3, **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu").device.type == "cpu"
@@ -100,11 +113,20 @@ def test_tensor_entry_points_run_where_the_tensor_lives():
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
+    from repro_torch.kernels import band_count as bc
+    from repro_torch.kernels import partition_count as pc
+    from repro_torch.kernels import segmented_select as ss
     x = torch.zeros(2, 16)
-    with pytest.raises(ValueError, match="CUDA"):
-        fs.fused_select(x, torch.tensor(0.0), 4)
-    with pytest.raises(ValueError, match="CUDA"):
-        fs.fused_select_multi(x, torch.zeros(3), 4)
+    keys = torch.zeros(2, 16, dtype=torch.int32)
+    for fn, args in ((fs.fused_select, (x, torch.tensor(0.0), 4)),
+                     (fs.fused_select_multi, (x, torch.zeros(3), 4)),
+                     (fs.byte_histogram, (x, 0, 0, 24)),
+                     (fs.radix_walk, (x, 1)),
+                     (pc.partition_count, (x, 0.0)), (pc.bisect, (x, 1)),
+                     (bc.band_count, (x, 0.0, 1.0)),
+                     (ss.segmented_select, (x, keys, torch.zeros(1, 1), 4))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -112,7 +134,7 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     monkeypatch.setattr(shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        fs._nvcc()
+        cuda_build.nvcc()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
