@@ -5,7 +5,7 @@
 
 1. Builds every Hopper kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, sm_90a, all started together) and prints the build time and
-   each library's ptxas spill lines.
+   each library's ptxas spill lines, each with the kernel it belongs to.
 2. Holds each of the six kernels against its plain PyTorch version on the
    card, bit for bit (tolerance zero), and prints passed/total per kernel:
    f32/bf16/int32/f64 (the sortable-u32 domain for byte_histogram) x the
@@ -13,8 +13,12 @@
    mixed -0.0/+0.0, the dtype's sentinels in the data, n not a multiple of
    the vector width, cap = n_i, duplicate pivots, more pivots than one
    launch takes; for segmented_select also empty groups, keys -1 and G, one
-   group holding all the data, G*Q = 1 and G*Q too large for one block's
-   shared memory; for the radix walks a k outside [1, n]).
+   group holding all the data, G*Q = 1, G*Q too large for one block's
+   shared memory, and bands wider than one run of the band sort: kept
+   counts 1, T - 1, T, T + 1, 2T + 3, 3T + 5 and at least 2^17 (T the run
+   tile), a band the trim cuts, ties and mixed -0.0/+0.0 across run
+   boundaries, rows of an odd number of runs; for the radix walks a k
+   outside [1, n]).
 3. Checks that the card's sorts, argmins and answers equal the CPU port's
    on signed zeros and ties, bit for bit.
 4. Drives the main path at the paper's size: n = 120 x 2^23 = 1,006,632,960
@@ -365,6 +369,52 @@ def segmented_parity(tally: Tally) -> None:
                     tally.add("segmented_select", _same_bits(got, want),
                               f"{dtype} {kind} {shape} G={G} Q={Q} "
                               f"{key_kind} grid#{gi} cap={cap}")
+    torch.cuda.synchronize()
+
+
+def _wide_case(dtype, kind: str, tile: int, gen):
+    """(2, n) data and keys whose groups hold the band widths that reach
+    the merge passes: 1, T - 1, T, T + 1, 2T + 3 (3 runs), 3T + 5 and
+    4T + 1 or 2^17 + 7, whichever is larger (5 or 9 runs), plus 1000
+    elements of no group; T is the run tile.  Pivots per group: below all
+    of its data, its median, above all of it."""
+    sizes = [1, tile - 1, tile, tile + 1, 2 * tile + 3, 3 * tile + 5,
+             max(4 * tile + 1, (1 << 17) + 7)]
+    G = len(sizes)
+    base = torch.repeat_interleave(
+        torch.arange(-1, G, device="cuda", dtype=torch.int32),
+        torch.tensor([1000] + sizes, device="cuda"))
+    n = base.numel()
+    keys = torch.stack([base[torch.randperm(n, generator=gen, device="cuda")]
+                        for _ in range(2)])
+    x = _case_data(dtype, kind, (2, n), gen)
+    lo, hi = ((float("-inf"), float("inf")) if dtype.is_floating_point
+              else (torch.iinfo(dtype).min, torch.iinfo(dtype).max))
+    grid = []
+    for g in range(G):
+        mine = torch.sort(x[keys == g].double()).values
+        grid.append([lo, float(mine[(mine.numel() - 1) // 2]), hi])
+    pivots = torch.tensor(grid, dtype=torch.float64, device="cuda").to(dtype)
+    return x, keys, pivots, sizes
+
+
+def segmented_wide_parity(tally: Tally) -> None:
+    """segmented_select on bands wider than one run of its sort: every
+    band width of ``_wide_case`` kept whole (cap = the widest), an overfull
+    band the trim cuts (cap = 3T + 1) and bands of T - 3 kept keys, on
+    normal data and on signed zeros and ties that straddle run
+    boundaries."""
+    from repro_torch.kernels import ref, segmented_select as ss
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    for dtype in DTYPES:
+        tile = ss.run_tile(dtype)
+        for kind in ("normal", "signed_zeros"):
+            x, keys, pivots, sizes = _wide_case(dtype, kind, tile, gen)
+            for cap in (max(sizes), 3 * tile + 1, tile - 3):
+                got = ss.segmented_select(x, keys, pivots, cap)
+                want = ref.segmented_select_ref(x, keys, pivots, cap)
+                tally.add("segmented_select", _same_bits(got, want),
+                          f"wide {dtype} {kind} T={tile} cap={cap}")
     torch.cuda.synchronize()
 
 
@@ -798,16 +848,21 @@ def grouped_path(seed: int):
 
 def build_all() -> None:
     """Build every kernel library (one nvcc per source, all at once) and
-    print the build time and each library's ptxas spill lines."""
+    print the build time and each library's ptxas spill lines, each after
+    the kernel they belong to."""
     from repro_torch.kernels import cuda_build
     t0 = time.perf_counter()
     libs = cuda_build.build(*cuda_build.SOURCES)
     spills = {}
     for lib in libs:
         log = lib.with_name(lib.name + ".log")
-        lines = log.read_text().splitlines() if log.exists() else []
-        spills[lib.name] = [ln for ln in lines if "spill" in ln
-                            and " 0 bytes spill stores" not in ln]
+        kernel, found = "?", []
+        for ln in (log.read_text().splitlines() if log.exists() else []):
+            if "Function properties for" in ln:
+                kernel = ln.split("Function properties for")[-1].strip()
+            elif "spill" in ln and " 0 bytes spill stores" not in ln:
+                found.append(f"{kernel}: {ln.strip()}")
+        spills[lib.name] = found
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "ptxas_spill_lines": spills}), flush=True)
 
@@ -833,6 +888,7 @@ def main() -> int:
     fused_parity(tally)
     counting_parity(tally)
     segmented_parity(tally)
+    segmented_wide_parity(tally)
     parity = tally.result()
     print(json.dumps({"parity": {k: f"{p}/{t}" for k, (p, t) in parity.items()}}),
           flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the fused_select kernels of two checkouts on one CUDA card, in turns.
+"""Time the band kernels of two checkouts on one CUDA card, in turns.
 
     python3 scripts/compare_kernels.py PARENT_TREE CHANGE_TREE [--seed 0]
 
@@ -9,10 +9,13 @@ parent, change, change, parent, each in a process of its own that imports
 that tree's ``repro_torch`` and builds its kernels.  Each process times
 ``fused_select`` (the q = 0.5 pivot) and ``fused_select_multi`` (five
 pivots) at the main path's shapes (120 x 2^23 float32 normal values from
-``--seed``, eps = 1e-4) with CUDA events, and takes the device time of one
+``--seed``, eps = 1e-4), and ``segmented_select`` at the grouped path's
+(the same size of tenant latencies and int32 keys, built as
+``chip_smoke.py``'s grouped phase builds them, G x Q = 32 x 2, pivots from
+the grouped sketch), with CUDA events, and takes the device time of one
 call of each by CUDA kernel from torch.profiler.  It prints one JSON line a
-run, then the card's name and power limit.  It fails if the two trees'
-outputs differ.
+run, with checksums of every output, then the card's name and power limit.
+It fails if the two trees' outputs differ.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ def worker(tree: str, label: str, seed: int) -> None:
                                          query_merged_sketch,
                                          sample_sketch_params)
     from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segmented_select as ss
 
     fs.build()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -51,10 +55,10 @@ def worker(tree: str, label: str, seed: int) -> None:
     del vals, weights
     outs = (*fs.fused_select(x, pivot, cap),
             *fs.fused_select_multi(x, pivots, cap))
-    checksum = [float(t.double().sum()) for t in outs]
+    checksum = [_checksum(cs, t) for t in outs]
     del outs
-    print(json.dumps({
-        "tree": tree, "label": label, "checksum": checksum,
+    record = {
+        "tree": tree, "label": label,
         "fused_select_ms": cs._event_ms(
             lambda: fs.fused_select(x, pivot, cap), 5),
         "fused_select_multi_ms": cs._event_ms(
@@ -63,7 +67,49 @@ def worker(tree: str, label: str, seed: int) -> None:
             lambda: fs.fused_select(x, pivot, cap)),
         "fused_select_multi_profile": cs._profile(
             lambda: fs.fused_select_multi(x, pivots, cap)),
-    }), flush=True)
+    }
+    del x
+    torch.cuda.empty_cache()
+
+    values, keys, g_pivots, g_cap = grouped_inputs(cs, seed)
+    outs = ss.segmented_select(values, keys, g_pivots, g_cap)
+    checksum += [_checksum(cs, t) for t in outs]
+    del outs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record["segmented_select_ms"] = cs._event_ms(
+        lambda: ss.segmented_select(values, keys, g_pivots, g_cap), 3)
+    record["segmented_select_peak_bytes"] = torch.cuda.max_memory_allocated()
+    record["segmented_select_profile"] = cs._profile(
+        lambda: ss.segmented_select(values, keys, g_pivots, g_cap), top=12)
+    record["checksum"] = checksum
+    print(json.dumps(record), flush=True)
+
+
+def _checksum(cs, t) -> int:
+    """The sum of t's raw bits as integers: equal outputs give equal sums,
+    sentinels included."""
+    return int(cs._bits(t).long().sum())
+
+
+def grouped_inputs(cs, seed: int):
+    """The grouped path's values, keys, (G, Q) pivots and cap, as
+    ``chip_smoke.grouped_path`` forms them."""
+    import torch
+    from repro_torch.core import grouped as gr, local_ops
+    values, keys = cs._tenant_data(seed)
+    G = cs.GROUPS
+    s = gr.grouped_sketch_samples(cs.EPS, cs.N_I)
+    vals, wts, counts, mslack = gr._sketch(values, keys, G, s)
+    kmat = gr.grouped_target_ranks(counts.sum(0, dtype=torch.int32),
+                                   cs.GROUP_QS)
+    pivots = gr.query_grouped_sketch(
+        vals.transpose(0, 1).reshape(G, -1), wts.transpose(0, 1).reshape(G, -1),
+        mslack.sum(0, dtype=torch.int32), kmat)
+    del vals, wts
+    torch.cuda.empty_cache()
+    return values, keys, pivots, local_ops.candidate_cap(values.numel(),
+                                                         cs.EPS, cs.N_I)
 
 
 def main() -> int:

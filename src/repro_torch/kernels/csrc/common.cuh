@@ -15,6 +15,10 @@
 //                            at least SORT_TILE): 8192-key tiles in registers,
 //                            warp shuffles and shared memory, wider steps in
 //                            device memory
+//   run_sort, merge_pass     rows of any length: runs of run_tile<Key>() keys
+//                            (128 KB) sorted in shared memory, then merged
+//                            pairwise by merge path, the last pass handing
+//                            each row to the caller's output policy
 // All offsets into the data are 64-bit.
 #pragma once
 #include <cuda_runtime.h>
@@ -182,6 +186,36 @@ __device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int
 // row-wise copies and the per-thread runs of KPT keys free of bank conflicts.
 __device__ __forceinline__ int pad_idx(int i) { return i + (i >> 5); }
 
+// Steps j, j/2, ..., 1 (j < WARP_SPAN) of bitonic stage k over the KPT keys
+// a lane holds, r[q] at position p0 + q: steps j >= KPT exchange with lane
+// lane ^ (j / KPT), smaller steps stay in registers.
+template <class Key>
+__device__ __forceinline__ void warp_steps(Key (&r)[KPT], int64_t p0, int lane, int64_t k,
+                                           int j) {
+  for (; j >= KPT; j >>= 1) {
+    const int m = j / KPT;                       // partner lane = lane ^ m
+    const bool lower = (lane & m) == 0;
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      const Key o = shfl_xor(r[q], m);
+      const bool asc = ((p0 + q) & k) == 0;
+      const Key mn = r[q] < o ? r[q] : o, mx = r[q] < o ? o : r[q];
+      r[q] = (lower == asc) ? mn : mx;
+    }
+  }
+#pragma unroll
+  for (int jj = KPT / 2; jj > 0; jj >>= 1) {
+    if (jj > j) continue;
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      if (q & jj) continue;
+      const bool asc = ((p0 + q) & k) == 0;
+      const Key a = r[q], b = r[q + jj];
+      if ((a > b) == asc) { r[q] = b; r[q + jj] = a; }
+    }
+  }
+}
+
 // Steps j = j_top, j_top/2, ..., 1 of bitonic stage k over one tile.  Thread
 // t holds tile positions t*KPT .. t*KPT+KPT-1 in registers: steps j < KPT
 // stay in registers, steps j < WARP_SPAN exchange between lanes of a warp,
@@ -210,28 +244,7 @@ __device__ __forceinline__ void tile_stage(Key (&r)[KPT], Key* s, int64_t tile_o
     for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(me + q)];
     __syncthreads();
   }
-  for (; j >= KPT; j >>= 1) {
-    const int m = j / KPT;                       // partner lane = lane ^ m
-    const bool lower = (threadIdx.x & m) == 0;
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) {
-      const Key o = shfl_xor(r[q], m);
-      const bool asc = ((tile_off + me + q) & k) == 0;
-      const Key mn = r[q] < o ? r[q] : o, mx = r[q] < o ? o : r[q];
-      r[q] = (lower == asc) ? mn : mx;
-    }
-  }
-#pragma unroll
-  for (int jj = KPT / 2; jj > 0; jj >>= 1) {
-    if (jj > j) continue;
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) {
-      if (q & jj) continue;
-      const bool asc = ((tile_off + me + q) & k) == 0;
-      const Key a = r[q], b = r[q + jj];
-      if ((a > b) == asc) { r[q] = b; r[q + jj] = a; }
-    }
-  }
+  warp_steps(r, tile_off + me, threadIdx.x & 31, k, j);
 }
 
 // k_merge == 0: sort every tile (stages k = 2 .. SORT_TILE, each tile in the
@@ -314,6 +327,198 @@ int sort_rows(Key* buf, int64_t rows, int64_t stride, int64_t len, cudaStream_t 
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// rows sorted as runs in shared memory, then merged pairwise by merge path
+// ---------------------------------------------------------------------------
+//
+// A row of n keys is cut into runs of run_tile<Key>() keys.  run_sort sorts
+// each run in one block; merge_pass merges runs two by two (pass p merges
+// runs of run_tile << p keys), each block producing MERGE_CHUNK keys of the
+// merged row.  A row of one run, and the last pass of a wider row, hand the
+// sorted keys to the caller's Rows policy instead of the buffer:
+//   int len(r)                  keys of row r
+//   int out_len()               keys the caller takes from each row
+//   void put(r, i, key, valid)  row r's i-th output; valid is i < len(r)
+// Both kernels take a table of (row, run or chunk) per block, which
+// expand_blocks writes from per-row block counts that the host derives from
+// the row lengths.
+
+#ifndef RUN_BYTES
+#define RUN_BYTES (1 << 17)                      // keys of one run, in bytes
+#endif
+constexpr int RUN_THREADS = 512;
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_KPT = 8;
+constexpr int MERGE_CHUNK = MERGE_THREADS * MERGE_KPT;   // keys one merge block writes
+
+// The (row, index) table of the sort's launches: segment s (row s % rows of
+// one launch) owns entries first[s] .. first[s + 1] - 1, first being an
+// exclusive prefix of the per-row block counts over all launches.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+expand_blocks(const int* __restrict__ first, int64_t segments, int rows,
+              int* __restrict__ blk_row, int* __restrict__ blk_idx) {
+  for (int64_t s = blockIdx.x; s < segments; s += gridDim.x) {
+    const int lo = first[s], hi = first[s + 1];
+    for (int i = lo + threadIdx.x; i < hi; i += THREADS) {
+      blk_row[i] = int(s % rows);
+      blk_idx[i] = i - lo;
+    }
+  }
+}
+
+// Keys one run_sort block sorts: 32,768 of 32 bits, with the pad slots
+// 132 KB of shared memory.
+template <class Key>
+__host__ __device__ constexpr int run_tile() { return RUN_BYTES / int(sizeof(Key)); }
+
+template <class Key>
+__host__ __device__ constexpr int run_smem() {
+  return (run_tile<Key>() + run_tile<Key>() / 32) * int(sizeof(Key));
+}
+
+// Stages k0 .. k1 of the bitonic network over s[0, n), one warp per
+// WARP_SPAN keys in registers: all steps of stages k <= WARP_SPAN, or the
+// steps j < WARP_SPAN of one wider stage (k0 == k1).
+template <class Key>
+__device__ __forceinline__ void warp_stages(Key* s, int n, int k0, int k1) {
+  const int lane = threadIdx.x & 31;
+  for (int seg = (threadIdx.x >> 5) * WARP_SPAN; seg < n; seg += (blockDim.x >> 5) * WARP_SPAN) {
+    const int p0 = seg + lane * KPT;
+    Key r[KPT];
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(p0 + q)];
+    for (int k = k0; k <= k1; k <<= 1)
+      warp_steps(r, p0, lane, k, (k >> 1) < WARP_SPAN / 2 ? (k >> 1) : WARP_SPAN / 2);
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) s[pad_idx(p0 + q)] = r[q];
+  }
+  __syncthreads();
+}
+
+// Sorts s[0, n) ascending (pad_idx slots; n a power of two, WARP_SPAN <= n).
+template <class Key>
+__device__ void block_sort(Key* s, int n) {
+  warp_stages(s, n, 2, WARP_SPAN);
+  for (int k = 2 * WARP_SPAN; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= WARP_SPAN; j >>= 1) {
+      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const Key a = s[pad_idx(i)], b = s[pad_idx(i + j)];
+        if ((a > b) == ((i & k) == 0)) {
+          s[pad_idx(i)] = b;
+          s[pad_idx(i + j)] = a;
+        }
+      }
+      __syncthreads();
+    }
+    warp_stages(s, n, k, k);
+  }
+}
+
+// Block b sorts run blk_run[b] of row blk_row[b], in place in buf (row r
+// starts at off[r]), at the power of two at or above its length (at least
+// one warp's span), padded with the largest key.  A row of one run goes to
+// rows.put instead, out_len() keys of it.
+template <class Key, class Rows>
+__global__ void __launch_bounds__(RUN_THREADS)
+run_sort(Rows rows, Key* __restrict__ buf, const int64_t* __restrict__ off,
+         const int* __restrict__ blk_row, const int* __restrict__ blk_run) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Key* s = reinterpret_cast<Key*>(smem);
+  constexpr int T = run_tile<Key>();
+  const int64_t r = blk_row[blockIdx.x];
+  const int len = rows.len(r);
+  const int lo = blk_run[blockIdx.x] * T;
+  const int n = len - lo < T ? len - lo : T;
+  int width = WARP_SPAN;
+  while (width < n) width <<= 1;
+  Key* row = buf + off[r] + lo;
+  for (int t = threadIdx.x; t < width; t += RUN_THREADS) s[pad_idx(t)] = t < n ? row[t] : Key(~Key(0));
+  __syncthreads();
+  block_sort(s, width);
+  if (len <= T) {
+    const int out = rows.out_len();
+    for (int t = threadIdx.x; t < out; t += RUN_THREADS)
+      rows.put(r, t, t < n ? s[pad_idx(t)] : Key(0), t < n);
+  } else {
+    for (int t = threadIdx.x; t < n; t += RUN_THREADS) row[t] = s[pad_idx(t)];
+  }
+}
+
+// Merge path: how many of the first d keys of merge(a, b) come from a, equal
+// keys taking a first.
+template <class Key>
+__device__ __forceinline__ int merge_split(const Key* a, int la, const Key* b, int lb, int d) {
+  int lo = d > lb ? d - lb : 0, hi = d < la ? d : la;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[d - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Pass p: block b writes keys [c * MERGE_CHUNK, (c + 1) * MERGE_CHUNK) of
+// row blk_row[b], c = blk_chunk[b], merged from two sorted runs of
+// run_tile << p keys of src (a last run with no partner is copied).  Rows of
+// more than 2^(p+1) runs go to dst, the others to rows.put (out_len() keys
+// each, so their last pass merges only what the caller takes).
+template <class Key, class Rows>
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_pass(Rows rows, const Key* __restrict__ src, const int64_t* __restrict__ src_off,
+           Key* __restrict__ dst, const int64_t* __restrict__ dst_off, int pass,
+           const int* __restrict__ blk_row, const int* __restrict__ blk_chunk) {
+  __shared__ Key s_in[MERGE_CHUNK];
+  __shared__ Key s_out[MERGE_CHUNK];
+  __shared__ int s_split[2];
+  constexpr int T = run_tile<Key>();
+  const int64_t r = blk_row[blockIdx.x];
+  const int len = rows.len(r);
+  const bool last = (len + T - 1) / T <= (2 << pass);
+  const int end = last ? rows.out_len() : len;
+  const int o0 = blk_chunk[blockIdx.x] * MERGE_CHUNK;
+  const int o1 = end - o0 < MERGE_CHUNK ? end : o0 + MERGE_CHUNK;
+  const int m1 = o1 < len ? o1 : len;            // merged keys end here
+  const int n = m1 - o0;
+  if (n > 0) {
+    const int64_t W = int64_t(T) << pass;
+    const int64_t s0 = (o0 / (2 * W)) * 2 * W;   // the pair's first key
+    const int la = int(len - s0 < W ? len - s0 : W);
+    const int lb = int(len - s0 - W <= 0 ? 0 : (len - s0 - W < W ? len - s0 - W : W));
+    const Key* a = src + src_off[r] + s0;
+    const Key* b = a + W;
+    if (threadIdx.x < 2)
+      s_split[threadIdx.x] = merge_split(a, la, b, lb, int((threadIdx.x ? m1 : o0) - s0));
+    __syncthreads();
+    const int i0 = s_split[0], i1 = s_split[1];
+    const int j0 = int(o0 - s0) - i0, j1 = int(m1 - s0) - i1;
+    const int na = i1 - i0, nb = j1 - j0;
+    for (int t = threadIdx.x; t < na; t += MERGE_THREADS) s_in[t] = a[i0 + t];
+    for (int t = threadIdx.x; t < nb; t += MERGE_THREADS) s_in[na + t] = b[j0 + t];
+    __syncthreads();
+    const int d = threadIdx.x * MERGE_KPT;
+    if (d < n) {
+      const Key* sa = s_in;
+      const Key* sb = s_in + na;
+      int ia = merge_split(sa, na, sb, nb, d), ib = d - ia;
+#pragma unroll
+      for (int q = 0; q < MERGE_KPT; ++q) {
+        if (d + q >= n) break;
+        const bool take_a = ia < na && (ib >= nb || sa[ia] <= sb[ib]);
+        s_out[d + q] = take_a ? sa[ia++] : sb[ib++];
+      }
+    }
+    __syncthreads();
+  }
+  if (last) {
+    for (int t = threadIdx.x; t < o1 - o0; t += MERGE_THREADS)
+      rows.put(r, o0 + t, t < n ? s_out[t] : Key(0), t < n);
+  } else {
+    Key* out = dst + dst_off[r] + o0;
+    for (int t = threadIdx.x; t < n; t += MERGE_THREADS) out[t] = s_out[t];
+  }
 }
 
 }  // namespace

@@ -16,7 +16,8 @@
 // The TPU kernel re-scores every tile against all G*Q pivots, so its work
 // grows with G.  Here each element looks up its own group and meets only
 // that group's Q pivots.  The bands do not fit on chip, so, as in
-// fused_select.cu, a threshold replaces the running merge:
+// fused_select.cu, a threshold replaces the running merge, and each band's
+// keys are sorted where they were compacted:
 //   pass 1  (hist_kernel)      one read per group slice: per (shard, group)
 //                              a 1024-bin shared-memory histogram of the top
 //                              10 bits of the canonical key (-0.0 folded onto
@@ -38,15 +39,20 @@
 //                              cursors;
 //   trim    (trim_kernel)      a histogram of the next key bits of the
 //                              threshold bin finds how much of it each
-//                              overfull band keeps;
-//   gather  (gather_kernel)    the kept keys of each row into a sort buffer
-//                              whose rows are a power of two wide, rows of one
-//                              width side by side;
-//   sort                       sort_rows (common.cuh) per width;
-//   emit    (emit_kernel)      the first cap keys of each row back to values,
-//                              sentinel padded.
-// Heavy ties or one group holding the data make bands wider: slower, still
-// exact.  All offsets into the data and the scratch are 64-bit.
+//                              overfull band keeps, and moves the kept keys
+//                              to the front of the band's row;
+//   sort    (run_sort)         common.cuh: each run of 32,768 kept keys
+//                              (128 KB) sorted in shared memory, in place; a
+//                              band of one run, at the power of two at or
+//                              above its length, straight into the output;
+//   merge   (merge_pass)       common.cuh: runs merged two by two by merge
+//                              path, ping-ponging between the scratch rows
+//                              and a second buffer; a band's last pass writes
+//                              its first cap keys as values, sentinel padded.
+// A band of k kept keys is read and written about 2 + log2(k / 32,768) times
+// after the compaction.  Heavy ties or one group holding the data make bands
+// wider: slower, still exact.  All offsets into the data and the scratch are
+// 64-bit.
 #include "common.cuh"
 
 namespace {
@@ -405,23 +411,25 @@ struct Trim {
   __device__ static int sub(Key o) { return int(o >> SUB_SHIFT) & (SUB - 1); }
 };
 
-// kept[r]: the keys row r keeps; sub[r]: the last sub-bin of its threshold
-// bin that it keeps, or -1 when it keeps the whole row (cand <= cap).
+// kept[r]: the keys row r keeps.  A row of more than cap candidates keeps
+// those in bins nearer the pivot and, of its threshold bin, the sub-bins up
+// to the first at which the count reaches cap; its kept keys are then moved
+// to the front of its row, in place.  The kept keys are the row's smallest,
+// since the outward key ascends with the stored key.
 template <class Tr>
 __global__ void __launch_bounds__(THREADS)
-trim_kernel(const typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
+trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
             const int* __restrict__ cand, const int* __restrict__ thr,
-            const int* __restrict__ thrcnt, int cap, int* __restrict__ kept,
-            int* __restrict__ sub) {
+            const int* __restrict__ thrcnt, int cap, int* __restrict__ kept) {
   using T = Trim<Tr>;
+  using Key = typename Tr::Key;
+  constexpr int PER = 8;                          // keys a thread holds per round
   __shared__ int s_hist[T::SUB];
+  __shared__ int s_b2, s_cur;
   const int64_t r = blockIdx.x;
   const int c = cand[r];
   if (c <= cap) {
-    if (threadIdx.x == 0) {
-      kept[r] = c;
-      sub[r] = -1;
-    }
+    if (threadIdx.x == 0) kept[r] = c;
     return;
   }
   const int side = int(r & 1);
@@ -430,9 +438,9 @@ trim_kernel(const typename Tr::Key* __restrict__ buf, const int64_t* __restrict_
   const int need = cap - before;                    // >= 1
   for (int i = threadIdx.x; i < T::SUB; i += THREADS) s_hist[i] = 0;
   __syncthreads();
-  const typename Tr::Key* row = buf + off[r];
+  Key* row = buf + off[r];
   for (int i = threadIdx.x; i < c; i += THREADS) {
-    const typename Tr::Key o = T::outward(row[i], side);
+    const Key o = T::outward(row[i], side);
     if (T::bin(o) == b1) atomicAdd(&s_hist[T::sub(o)], 1);
   }
   __syncthreads();
@@ -443,73 +451,62 @@ trim_kernel(const typename Tr::Key* __restrict__ buf, const int64_t* __restrict_
       if (run >= need) { b2 = i; break; }
     }
     kept[r] = before + run;
-    sub[r] = b2;
+    s_b2 = before + run < c ? b2 : -1;
+    s_cur = 0;
   }
-}
-
-// Row r's kept keys into its sort row at sort_off[r], the rest of the sort
-// row (sort_len[r] keys) filled with the largest key.
-template <class Tr>
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
-              const int* __restrict__ cand, const int* __restrict__ thr,
-              const int* __restrict__ sub, const int* __restrict__ kept,
-              const int64_t* __restrict__ sort_off, const int64_t* __restrict__ sort_len,
-              typename Tr::Key* __restrict__ sbuf) {
-  using T = Trim<Tr>;
-  using Key = typename Tr::Key;
-  __shared__ int s_pos;
-  const int64_t r = blockIdx.x;
-  const int kp = kept[r];
-  if (kp == 0) return;
-  const int c = cand[r];
-  const int b2 = sub[r];
-  const int side = int(r & 1);
-  const int b1 = side == 0 ? NBS - 1 - thr[r] : thr[r];
-  const Key* row = buf + off[r];
-  Key* dst = sbuf + sort_off[r];
-  if (b2 < 0) {
-    for (int i = threadIdx.x; i < c; i += THREADS) dst[i] = row[i];
-  } else {
-    if (threadIdx.x == 0) s_pos = 0;
+  __syncthreads();
+  const int b2 = s_b2;
+  if (b2 < 0) return;
+  // every key of a round is read before any is written, and the writes end
+  // at or before the round's last key
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < c; base += THREADS * PER) {
+    Key v[PER];
+    bool keep[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int i = base + q * THREADS + threadIdx.x;
+      keep[q] = false;
+      if (i < c) {
+        v[q] = row[i];
+        const Key o = T::outward(v[q], side);
+        const int hb = T::bin(o);
+        keep[q] = hb < b1 || (hb == b1 && T::sub(o) <= b2);
+      }
+    }
     __syncthreads();
-    for (int i = threadIdx.x; i < c; i += THREADS) {
-      const Key s = row[i];
-      const Key o = T::outward(s, side);
-      const int hb = T::bin(o);
-      if (hb < b1 || (hb == b1 && T::sub(o) <= b2)) dst[atomicAdd(&s_pos, 1)] = s;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, keep[q]);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_cur, __popc(m));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0);
+      if (keep[q]) row[at + __popc(m & ((1u << lane) - 1))] = v[q];
     }
+    __syncthreads();
   }
-  const int64_t len = sort_len[r];
-  for (int64_t i = kp + threadIdx.x; i < len; i += THREADS) dst[i] = Key(~Key(0));
 }
 
-// ---------------------------------------------------------------------------
-// emit: first cap keys of each row back to values, sentinel padded
-// ---------------------------------------------------------------------------
-
+// The sort's output policy (common.cuh): row r = 2 * (p, g, q) + side keeps
+// kept[r] keys; its first cap go back to values (the below side stores ~key)
+// into below or above, the rest are the side's sentinel.
 template <class Tr>
-__global__ void emit_kernel(const typename Tr::Key* __restrict__ sbuf,
-                            const int64_t* __restrict__ sort_off, const int* __restrict__ kept,
-                            int64_t rows, int64_t cap, typename Tr::Raw* __restrict__ below,
-                            typename Tr::Raw* __restrict__ above) {
+struct BandRows {
   using Key = typename Tr::Key;
-  const int64_t total = rows * cap;
-  for (int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t r = t / cap, i = t % cap;
+  using Raw = typename Tr::Raw;
+  const int* kept;
+  int cap;
+  Raw* below;
+  Raw* above;
+  __device__ int len(int64_t r) const { return kept[r]; }
+  __device__ int out_len() const { return cap; }
+  __device__ void put(int64_t r, int i, Key k, bool valid) const {
     const int side = int(r & 1);
-    typename Tr::Raw v;
-    if (i < kept[r]) {
-      Key k = sbuf[sort_off[r] + i];
-      if (side == 0) k = Key(~k);
-      v = Tr::raw(k);
-    } else {
-      v = side == 0 ? typename Tr::Raw(Tr::LO) : typename Tr::Raw(Tr::HI);
-    }
-    (side == 0 ? below : above)[(r >> 1) * cap + i] = v;
+    const Raw v = valid ? Tr::raw(side == 0 ? Key(~k) : k)
+                        : (side == 0 ? Raw(Tr::LO) : Raw(Tr::HI));
+    (side == 0 ? below : above)[(r >> 1) * int64_t(cap) + i] = v;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // host side
@@ -560,36 +557,39 @@ int compact_impl(const void* x, const int* keys, int64_t P, int64_t n_i, const v
 }
 
 template <class Tr>
-int trim_impl(const void* buf, const int64_t* off, const int* cand, const int* thr,
-              const int* thrcnt, int64_t rows, int cap, int* kept, int* sub, cudaStream_t st) {
+int trim_impl(void* buf, const int64_t* off, const int* cand, const int* thr,
+              const int* thrcnt, int64_t rows, int cap, int* kept, cudaStream_t st) {
   trim_kernel<Tr><<<unsigned(rows), THREADS, 0, st>>>(
-      static_cast<const typename Tr::Key*>(buf), off, cand, thr, thrcnt, cap, kept, sub);
+      static_cast<typename Tr::Key*>(buf), off, cand, thr, thrcnt, cap, kept);
   return int(cudaGetLastError());
 }
 
 template <class Tr>
-int gather_impl(const void* buf, const int64_t* off, const int* cand, const int* thr,
-                const int* sub, const int* kept, const int64_t* sort_off,
-                const int64_t* sort_len, int64_t rows, void* sbuf, cudaStream_t st) {
+int run_sort_impl(void* buf, const int64_t* off, const int* kept, int cap, void* below,
+                  void* above, const int* blk_row, const int* blk_run, int64_t blocks,
+                  cudaStream_t st) {
   using Key = typename Tr::Key;
-  gather_kernel<Tr><<<unsigned(rows), THREADS, 0, st>>>(
-      static_cast<const Key*>(buf), off, cand, thr, sub, kept, sort_off, sort_len,
-      static_cast<Key*>(sbuf));
+  using Raw = typename Tr::Raw;
+  constexpr int smem = run_smem<Key>();
+  cudaError_t e = cudaFuncSetAttribute(run_sort<Key, BandRows<Tr>>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
+  run_sort<Key, BandRows<Tr>><<<unsigned(blocks), RUN_THREADS, smem, st>>>(
+      rows, static_cast<Key*>(buf), off, blk_row, blk_run);
   return int(cudaGetLastError());
 }
 
 template <class Tr>
-int sort_impl(void* sbuf, int64_t rows, int64_t len, cudaStream_t st) {
-  return sort_rows<typename Tr::Key>(static_cast<typename Tr::Key*>(sbuf), rows, len, len, st);
-}
-
-template <class Tr>
-int emit_impl(const void* sbuf, const int64_t* sort_off, const int* kept, int64_t rows,
-              int64_t cap, void* below, void* above, cudaStream_t st) {
+int merge_impl(const void* src, const int64_t* src_off, void* dst, const int64_t* dst_off,
+               const int* kept, int cap, void* below, void* above, int pass,
+               const int* blk_row, const int* blk_chunk, int64_t blocks, cudaStream_t st) {
+  using Key = typename Tr::Key;
   using Raw = typename Tr::Raw;
-  emit_kernel<Tr><<<grid_for(rows * cap, 256), 256, 0, st>>>(
-      static_cast<const typename Tr::Key*>(sbuf), sort_off, kept, rows, cap,
-      static_cast<Raw*>(below), static_cast<Raw*>(above));
+  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
+  merge_pass<Key, BandRows<Tr>><<<unsigned(blocks), MERGE_THREADS, 0, st>>>(
+      rows, static_cast<const Key*>(src), src_off, static_cast<Key*>(dst), dst_off, pass,
+      blk_row, blk_chunk);
   return int(cudaGetLastError());
 }
 
@@ -648,42 +648,60 @@ extern "C" int ss_compact(int dtype, const void* x, const int* keys, long long P
               static_cast<cudaStream_t>(stream))
 }
 
-// kept, sub: (rows,) int32.
-extern "C" int ss_trim(int dtype, const void* buf, const long long* off, const int* cand,
+// kept: (rows,) int32.  Moves each trimmed row's kept keys to its front.
+extern "C" int ss_trim(int dtype, void* buf, const long long* off, const int* cand,
                        const int* thr, const int* thrcnt, long long rows, int cap, int* kept,
-                       int* sub, void* stream) {
+                       void* stream) {
   if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
   SS_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), cand, thr, thrcnt, rows,
-              cap, kept, sub, static_cast<cudaStream_t>(stream))
+              cap, kept, static_cast<cudaStream_t>(stream))
 }
 
-// sort_off, sort_len: (rows,) int64, each row's start and width in sbuf.
-extern "C" int ss_gather(int dtype, const void* buf, const long long* off, const int* cand,
-                         const int* thr, const int* sub, const int* kept,
-                         const long long* sort_off, const long long* sort_len, long long rows,
-                         void* sbuf, void* stream) {
-  if (rows < 1 || rows > 0x7FFFFFFFLL) return kBadArgument;
-  SS_DISPATCH(gather_impl, buf, reinterpret_cast<const int64_t*>(off), cand, thr, sub, kept,
-              reinterpret_cast<const int64_t*>(sort_off),
-              reinterpret_cast<const int64_t*>(sort_len), rows, sbuf,
-              static_cast<cudaStream_t>(stream))
+// The run sort: one block per (blk_row, blk_run) pair, `blocks` of them; the
+// runs are sorted in place in buf, rows of one run go to below/above
+// ((P, G, Q, cap) of x's type).
+extern "C" int ss_run_sort(int dtype, void* buf, const long long* off, const int* kept, int cap,
+                           void* below, void* above, const int* blk_row, const int* blk_run,
+                           long long blocks, void* stream) {
+  if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
+  SS_DISPATCH(run_sort_impl, buf, reinterpret_cast<const int64_t*>(off), kept, cap, below,
+              above, blk_row, blk_run, blocks, static_cast<cudaStream_t>(stream))
 }
 
-// Sorts `rows` adjacent rows of `len` keys each (len a power of two, at least
-// ss_sort_tile()) starting at sbuf.
-extern "C" int ss_sort(int dtype, void* sbuf, long long rows, long long len, void* stream) {
-  if (rows < 1 || len < SORT_TILE || (len & (len - 1))) return kBadArgument;
-  SS_DISPATCH(sort_impl, sbuf, rows, len, static_cast<cudaStream_t>(stream))
+// Merge pass `pass` from src (rows at src_off) to dst (rows at dst_off) or,
+// for the rows it finishes, to below/above; one block per (blk_row,
+// blk_chunk) pair.
+extern "C" int ss_merge(int dtype, const void* src, const long long* src_off, void* dst,
+                        const long long* dst_off, const int* kept, int cap, void* below,
+                        void* above, int pass, const int* blk_row, const int* blk_chunk,
+                        long long blocks, void* stream) {
+  if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1 || pass < 0 || pass > 30)
+    return kBadArgument;
+  SS_DISPATCH(merge_impl, src, reinterpret_cast<const int64_t*>(src_off), dst,
+              reinterpret_cast<const int64_t*>(dst_off), kept, cap, below, above, pass, blk_row,
+              blk_chunk, blocks, static_cast<cudaStream_t>(stream))
 }
 
-// below, above: (P, G, Q, cap) of x's type.
-extern "C" int ss_emit(int dtype, const void* sbuf, const long long* sort_off, const int* kept,
-                       long long rows, long long cap, void* below, void* above, void* stream) {
-  if (rows < 1 || cap < 1) return kBadArgument;
-  SS_DISPATCH(emit_impl, sbuf, reinterpret_cast<const int64_t*>(sort_off), kept, rows, cap,
-              below, above, static_cast<cudaStream_t>(stream))
+// The sort's block table: blk_row, blk_idx (first[segments],) int32 from
+// first (segments + 1,) int32, `rows` segments a launch.
+extern "C" int ss_expand(const int* first, long long segments, int rows, int* blk_row,
+                         int* blk_idx, void* stream) {
+  if (segments < 1 || rows < 1) return kBadArgument;
+  const int grid = int(segments < 65535 ? segments : 65535);
+  expand_blocks<128><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      first, segments, rows, blk_row, blk_idx);
+  return int(cudaGetLastError());
 }
 
+// Keys of one run of the sort, and of one merge block's output.
+extern "C" int ss_run_tile(int dtype) {
+  switch (dtype) {
+    case 0: case 2: return run_tile<uint32_t>();
+    case 1: return run_tile<uint16_t>();
+    case 3: return run_tile<unsigned long long>();
+    default: return kBadArgument;
+  }
+}
+extern "C" int ss_merge_chunk() { return MERGE_CHUNK; }
 extern "C" int ss_num_bins() { return NBS; }
-extern "C" int ss_sort_tile() { return SORT_TILE; }
 extern "C" int ss_max_pivots() { return MAX_PIVOTS; }

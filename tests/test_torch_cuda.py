@@ -139,6 +139,35 @@ def test_segmented_kernel_matches_plain_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_kernel_sorts_wide_bands_on_card(cuda, dtype):
+    """Bands of 1, T - 1, T, T + 1, 2T + 3, 3T + 5 and 2^17 + 7 kept keys
+    (T the run tile of the band sort), whole, cut by the trim, and kept
+    below one run; on ties and mixed zeros that straddle run boundaries."""
+    tile = ss.run_tile(dtype)
+    sizes = [1, tile - 1, tile, tile + 1, 2 * tile + 3, 3 * tile + 5,
+             (1 << 17) + 7]
+    rng = np.random.default_rng(11)
+    keys = np.repeat(np.arange(len(sizes)), sizes)
+    keys = torch.from_numpy(rng.permutation(keys).astype(np.int32)).to(cuda)
+    table = np.array([-0.0, 0.0, -1.0, 1.0, 2.5])
+    x = np.where(rng.random(keys.numel()) < 0.5,
+                 table[rng.integers(0, 5, keys.numel())],
+                 rng.normal(size=keys.numel()) * 100)
+    x = torch.from_numpy(x).to(device=cuda, dtype=dtype).reshape(1, -1)
+    keys = keys.reshape(1, -1)
+    lo, hi = ((float("-inf"), float("inf")) if dtype.is_floating_point
+              else (-2 ** 31, 2 ** 31 - 1))
+    grid = torch.tensor([[lo, 0.0, hi]] * len(sizes), dtype=torch.float64)
+    grid = grid.to(device=cuda, dtype=dtype)
+    for cap in (max(sizes), 3 * tile + 1, tile - 3):
+        got = ss.segmented_select(x, keys, grid, cap)
+        want = ref.segmented_select_ref(x, keys, grid, cap)
+        for g, w in zip(got, want):
+            assert _bits(g) == _bits(w), (dtype, cap)
+
+
+@pytest.mark.cuda
 def test_new_kernel_routes_count_their_reads(cuda):
     x = torch.randn(4, 5000, device=cuda)
     keys = torch.randint(0, 3, (4, 5000), device=cuda, dtype=torch.int32)
