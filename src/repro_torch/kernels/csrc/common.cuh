@@ -18,7 +18,8 @@
 //   run_sort, merge_pass     rows of any length: runs of run_tile<Key>() keys
 //                            (128 KB) sorted in shared memory, then merged
 //                            pairwise by merge path, the last pass handing
-//                            each row to the caller's output policy
+//                            each row to the caller's output policy;
+//                            expand_blocks writes their block tables
 // All offsets into the data are 64-bit.
 #pragma once
 #include <cuda_runtime.h>
