@@ -10,16 +10,17 @@
 //                            at the ragged end
 //   block_add                per-block counters into device memory, one
 //                            atomic per counter and block
-//   sort_rows                bitonic sort of every row of a (rows, stride)
-//                            key buffer, `len` keys a row (a power of two of
-//                            at least SORT_TILE): 8192-key tiles in registers,
-//                            warp shuffles and shared memory, wider steps in
-//                            device memory
+//   warp_steps               bitonic steps over KPT keys a lane holds in
+//                            registers, exchanging by warp shuffles
 //   run_sort, merge_pass     rows of any length: runs of run_tile<Key>() keys
 //                            (128 KB) sorted in shared memory, then merged
 //                            pairwise by merge path, the last pass handing
 //                            each row to the caller's output policy;
 //                            expand_blocks writes their block tables
+//   BandRows, band_run_sort, the band kernels' sort of their packed rows of
+//   band_merge               candidates, written out as values;
+//                            BAND_SORT_ENTRY_POINTS declares its C interface
+//                            under a library's prefix
 // All offsets into the data are 64-bit.
 #pragma once
 #include <cuda_runtime.h>
@@ -27,11 +28,8 @@
 
 namespace {
 
-constexpr int SORT_THREADS = 512;
 constexpr int KPT = 16;                          // keys each sort thread holds
-constexpr int SORT_TILE = SORT_THREADS * KPT;    // keys one block sorts: 8192
 constexpr int WARP_SPAN = 32 * KPT;              // keys one warp holds
-constexpr int STEP_THREADS = 256;
 constexpr int kBadArgument = -1;                 // C entry points: argument refused
 
 // ---------------------------------------------------------------------------
@@ -164,14 +162,8 @@ struct Vec {
 };
 
 // ---------------------------------------------------------------------------
-// bitonic sort of every row of a (rows, L) key buffer, L a power of two
+// bitonic steps over keys held in registers
 // ---------------------------------------------------------------------------
-
-template <class Key>
-__device__ __forceinline__ void cmp_swap(Key* s, int64_t i, int64_t j, bool asc) {
-  const Key a = s[i], b = s[i + j];
-  if ((a > b) == asc) { s[i] = b; s[i + j] = a; }
-}
 
 __device__ __forceinline__ uint16_t shfl_xor(uint16_t v, int m) {
   return uint16_t(__shfl_xor_sync(0xFFFFFFFFu, unsigned(v), m));
@@ -215,119 +207,6 @@ __device__ __forceinline__ void warp_steps(Key (&r)[KPT], int64_t p0, int lane, 
       if ((a > b) == asc) { r[q] = b; r[q + jj] = a; }
     }
   }
-}
-
-// Steps j = j_top, j_top/2, ..., 1 of bitonic stage k over one tile.  Thread
-// t holds tile positions t*KPT .. t*KPT+KPT-1 in registers: steps j < KPT
-// stay in registers, steps j < WARP_SPAN exchange between lanes of a warp,
-// wider steps go through shared memory.
-template <class Key>
-__device__ __forceinline__ void tile_stage(Key (&r)[KPT], Key* s, int64_t tile_off,
-                                           int64_t k, int j_top) {
-  const int me = threadIdx.x * KPT;
-  int j = j_top;
-  if (j >= WARP_SPAN) {
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) s[pad_idx(me + q)] = r[q];
-    __syncthreads();
-    for (; j >= WARP_SPAN; j >>= 1) {
-      for (int t = threadIdx.x; t < SORT_TILE / 2; t += SORT_THREADS) {
-        const int i = (t / j) * 2 * j + (t % j);
-        const Key a = s[pad_idx(i)], b = s[pad_idx(i + j)];
-        if ((a > b) == (((tile_off + i) & k) == 0)) {
-          s[pad_idx(i)] = b;
-          s[pad_idx(i + j)] = a;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(me + q)];
-    __syncthreads();
-  }
-  warp_steps(r, tile_off + me, threadIdx.x & 31, k, j);
-}
-
-// k_merge == 0: sort every tile (stages k = 2 .. SORT_TILE, each tile in the
-// direction its position in the row asks for).  k_merge > 0: finish stage
-// k_merge for the steps j < SORT_TILE.  Each row holds `len` keys to sort
-// (a power of two, at least SORT_TILE) at a stride of `stride` keys.
-template <class Key>
-__global__ void __launch_bounds__(SORT_THREADS)
-bitonic_tile(Key* __restrict__ buf, int64_t stride, int64_t len, int64_t k_merge) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Key* s = reinterpret_cast<Key*>(smem);
-  const int64_t tiles_per_row = len / SORT_TILE;
-  const int64_t tile_off = (blockIdx.x % tiles_per_row) * SORT_TILE;
-  const int64_t t0 = (blockIdx.x / tiles_per_row) * stride + tile_off;
-#pragma unroll
-  for (int c = 0; c < KPT; ++c) {
-    const int i = c * SORT_THREADS + threadIdx.x;
-    s[pad_idx(i)] = buf[t0 + i];
-  }
-  __syncthreads();
-  Key r[KPT];
-#pragma unroll
-  for (int q = 0; q < KPT; ++q) r[q] = s[pad_idx(threadIdx.x * KPT + q)];
-  __syncthreads();
-  if (k_merge == 0) {
-    for (int k = 2; k <= SORT_TILE; k <<= 1) tile_stage(r, s, tile_off, k, k >> 1);
-  } else {
-    tile_stage(r, s, tile_off, k_merge, SORT_TILE >> 1);
-  }
-#pragma unroll
-  for (int q = 0; q < KPT; ++q) s[pad_idx(threadIdx.x * KPT + q)] = r[q];
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < KPT; ++c) {
-    const int i = c * SORT_THREADS + threadIdx.x;
-    buf[t0 + i] = s[pad_idx(i)];
-  }
-}
-
-template <class Key>
-__global__ void __launch_bounds__(STEP_THREADS)
-bitonic_step(Key* __restrict__ buf, int64_t rows, int64_t stride, int64_t len,
-             int64_t k, int64_t j) {
-  const int64_t half = len / 2;
-  const int64_t pairs = rows * half;
-  for (int64_t t = int64_t(blockIdx.x) * STEP_THREADS + threadIdx.x; t < pairs;
-       t += int64_t(gridDim.x) * STEP_THREADS) {
-    const int64_t r = t / half, u = t % half;
-    const int64_t i = (u / j) * 2 * j + (u % j);
-    cmp_swap(buf + r * stride, i, j, (i & k) == 0);
-  }
-}
-
-inline int grid_for(int64_t work, int threads) {
-  int64_t b = (work + threads - 1) / threads;
-  if (b > 65535LL * 64) b = 65535LL * 64;
-  return int(b < 1 ? 1 : b);
-}
-
-// Sorts the first `len` keys of every row of a (rows, stride) buffer
-// ascending, on stream st.  Returns a cudaError_t value.
-template <class Key>
-int sort_rows(Key* buf, int64_t rows, int64_t stride, int64_t len, cudaStream_t st) {
-  const unsigned tiles = unsigned(rows * len / SORT_TILE);
-  const size_t smem = size_t(SORT_TILE + SORT_TILE / 32) * sizeof(Key);
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(bitonic_tile<Key>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                int(smem))) != cudaSuccess)
-    return int(e);
-  bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, stride, len, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  for (int64_t k = 2 * int64_t(SORT_TILE); k <= len; k <<= 1) {
-    for (int64_t j = k >> 1; j >= SORT_TILE; j >>= 1) {
-      bitonic_step<Key><<<grid_for(rows * len / 2, STEP_THREADS), STEP_THREADS, 0, st>>>(
-          buf, rows, stride, len, k, j);
-      if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-    }
-    bitonic_tile<Key><<<tiles, SORT_THREADS, smem, st>>>(buf, stride, len, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  }
-  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -522,4 +401,123 @@ merge_pass(Rows rows, const Key* __restrict__ src, const int64_t* __restrict__ s
   }
 }
 
+// ---------------------------------------------------------------------------
+// the band sort: output policy and launches shared by the band kernels
+// ---------------------------------------------------------------------------
+
+// The sort's output policy for band rows: row r = 2 * band + side keeps
+// kept[r] keys; its first cap go back to values (the below side stores
+// ~key) into below or above, band-major, the rest are the side's sentinel.
+template <class Tr>
+struct BandRows {
+  using Key = typename Tr::Key;
+  using Raw = typename Tr::Raw;
+  const int* kept;
+  int cap;
+  Raw* below;
+  Raw* above;
+  __device__ int len(int64_t r) const { return kept[r]; }
+  __device__ int out_len() const { return cap; }
+  __device__ void put(int64_t r, int i, Key k, bool valid) const {
+    const int side = int(r & 1);
+    const Raw v = valid ? Tr::raw(side == 0 ? Key(~k) : k)
+                        : (side == 0 ? Raw(Tr::LO) : Raw(Tr::HI));
+    (side == 0 ? below : above)[(r >> 1) * int64_t(cap) + i] = v;
+  }
+};
+
+template <class Tr>
+int band_run_sort(void* buf, const int64_t* off, const int* kept, int cap, void* below,
+                  void* above, const int* blk_row, const int* blk_run, int64_t blocks,
+                  cudaStream_t st) {
+  using Key = typename Tr::Key;
+  using Raw = typename Tr::Raw;
+  constexpr int smem = run_smem<Key>();
+  cudaError_t e = cudaFuncSetAttribute(run_sort<Key, BandRows<Tr>>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
+  run_sort<Key, BandRows<Tr>><<<unsigned(blocks), RUN_THREADS, smem, st>>>(
+      rows, static_cast<Key*>(buf), off, blk_row, blk_run);
+  return int(cudaGetLastError());
+}
+
+template <class Tr>
+int band_merge(const void* src, const int64_t* src_off, void* dst, const int64_t* dst_off,
+               const int* kept, int cap, void* below, void* above, int pass,
+               const int* blk_row, const int* blk_chunk, int64_t blocks, cudaStream_t st) {
+  using Key = typename Tr::Key;
+  using Raw = typename Tr::Raw;
+  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
+  merge_pass<Key, BandRows<Tr>><<<unsigned(blocks), MERGE_THREADS, 0, st>>>(
+      rows, static_cast<const Key*>(src), src_off, static_cast<Key*>(dst), dst_off, pass,
+      blk_row, blk_chunk);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
+
+// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float64.
+#define DTYPE_DISPATCH(FN, ...)                                               \
+  switch (dtype) {                                                            \
+    case 0: return FN<F32>(__VA_ARGS__);                                      \
+    case 1: return FN<BF16>(__VA_ARGS__);                                     \
+    case 2: return FN<I32>(__VA_ARGS__);                                      \
+    case 3: return FN<F64>(__VA_ARGS__);                                      \
+    default: return kBadArgument;                                             \
+  }
+
+// The band sort's C entry points of one library, each name under its prefix
+// (kernels/band_sort.py declares and drives them).  Each returns a
+// cudaError_t value, 0 on success, -1 for an argument the kernels refuse.
+//   _run_sort     one block per (blk_row, blk_run) pair, `blocks` of them: the
+//                 runs sorted in place in buf (row r from off[r]), rows of one
+//                 run straight to below/above (bands of cap values)
+//   _merge        merge pass `pass` from src (rows at src_off) to dst (rows at
+//                 dst_off) or, for the rows it finishes, to below/above; one
+//                 block per (blk_row, blk_chunk) pair
+//   _expand       the block tables: blk_row, blk_idx (first[segments],) int32
+//                 from first (segments + 1,) int32, `rows` segments a launch
+//   _run_tile     keys of one run for dtype; _merge_chunk: keys of one merge
+//                 block's output
+#define BAND_SORT_ENTRY_POINTS(PREFIX)                                        \
+  extern "C" int PREFIX##_run_sort(int dtype, void* buf, const long long* off,  \
+                                   const int* kept, int cap, void* below,       \
+                                   void* above, const int* blk_row,             \
+                                   const int* blk_run, long long blocks,        \
+                                   void* stream) {                              \
+    if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1) return kBadArgument;   \
+    DTYPE_DISPATCH(band_run_sort, buf, reinterpret_cast<const int64_t*>(off),   \
+                   kept, cap, below, above, blk_row, blk_run, blocks,           \
+                   static_cast<cudaStream_t>(stream))                          \
+  }                                                                            \
+  extern "C" int PREFIX##_merge(int dtype, const void* src,                    \
+                                const long long* src_off, void* dst,           \
+                                const long long* dst_off, const int* kept,     \
+                                int cap, void* below, void* above, int pass,   \
+                                const int* blk_row, const int* blk_chunk,      \
+                                long long blocks, void* stream) {              \
+    if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1 || pass < 0 || pass > 30) \
+      return kBadArgument;                                                     \
+    DTYPE_DISPATCH(band_merge, src, reinterpret_cast<const int64_t*>(src_off),  \
+                   dst, reinterpret_cast<const int64_t*>(dst_off), kept, cap,   \
+                   below, above, pass, blk_row, blk_chunk, blocks,              \
+                   static_cast<cudaStream_t>(stream))                          \
+  }                                                                            \
+  extern "C" int PREFIX##_expand(const int* first, long long segments, int rows, \
+                                 int* blk_row, int* blk_idx, void* stream) {    \
+    if (segments < 1 || rows < 1) return kBadArgument;                         \
+    const int grid = int(segments < 65535 ? segments : 65535);                 \
+    expand_blocks<128><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(    \
+        first, segments, rows, blk_row, blk_idx);                              \
+    return int(cudaGetLastError());                                            \
+  }                                                                            \
+  extern "C" int PREFIX##_run_tile(int dtype) {                                \
+    switch (dtype) {                                                           \
+      case 0: case 2: return run_tile<uint32_t>();                             \
+      case 1: return run_tile<uint16_t>();                                     \
+      case 3: return run_tile<unsigned long long>();                           \
+      default: return kBadArgument;                                            \
+    }                                                                          \
+  }                                                                            \
+  extern "C" int PREFIX##_merge_chunk() { return MERGE_CHUNK; }

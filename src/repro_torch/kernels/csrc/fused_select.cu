@@ -21,15 +21,20 @@
 //                              count from the pivot side reaches cap; lt and
 //                              gt are the two histograms' sums;
 //   pass 2  (compact_kernel)   one read: every element at or beyond that bin
-//                              is appended to its band's row of a scratch
-//                              buffer through a block-aggregated cursor;
+//                              is appended to its band's row of a packed
+//                              scratch buffer (rows sized exactly by the
+//                              scan) through block-aggregated cursors;
 //   trim    (trim_kernel)      a histogram of the next key bits of the
-//                              threshold bin cuts each band to about cap;
-//   sort    (bitonic_*)        each row sorted by key: tiles of 8192 keys
-//                              in registers, warp shuffles and shared memory,
-//                              the wide steps in device memory;
-//   emit    (emit_kernel)      the first cap keys of each row back to values,
-//                              sentinel padded.
+//                              threshold bin finds how much of it each
+//                              overfull band keeps, and moves the kept keys
+//                              to the front of the band's row;
+//   sort    (run_sort)         common.cuh: each run of 128 KB of kept keys
+//                              sorted in shared memory, in place; a band of
+//                              one run straight into the output;
+//   merge   (merge_pass)       common.cuh: runs merged two by two by merge
+//                              path, ping-ponging between the scratch rows
+//                              and a second buffer; a band's last pass writes
+//                              its first cap keys as values, sentinel padded.
 // Two full reads of the data.  On heavy ties the threshold bin can hold the
 // whole shard: slower, still exact.  All offsets into the data are 64-bit.
 #include "common.cuh"
@@ -130,8 +135,7 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
 __global__ void __launch_bounds__(32)
 threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_eq,
                  int Q, int64_t n_i, int cap, int* __restrict__ thr,
-                 int* __restrict__ cand, int* __restrict__ counts,
-                 int* __restrict__ max_cand) {
+                 int* __restrict__ cand, int* __restrict__ counts) {
   constexpr int PER_LANE = NB / 32;
   const int seg = blockIdx.x;     // ((p * Q) + q) * 2 + side
   const int side = seg & 1;       // 0: below the pivot, 1: above
@@ -167,7 +171,6 @@ threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_eq,
   if (lane == 0) {
     thr[seg] = bin_at(J);
     cand[seg] = c;
-    atomicMax(max_cand, c);
     if (side == 0) {
       const int pq = seg >> 1;
       const int eq = g_eq[pq];
@@ -186,12 +189,13 @@ template <class Tr, int MAXQ>
 __global__ void __launch_bounds__(THREADS)
 compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total,
                const typename Tr::Raw* __restrict__ pivots, int Q, int64_t chunk,
-               const int* __restrict__ thr, int* __restrict__ cursor,
-               typename Tr::Key* __restrict__ buf, int64_t L) {
+               const int* __restrict__ thr, const int64_t* __restrict__ off,
+               int* __restrict__ cursor, typename Tr::Key* __restrict__ buf) {
   using Raw = typename Tr::Raw;
   using Key = typename Tr::Key;
   using V = Vec<Raw>;
-  __shared__ int s_cnt[2 * MAXQ], s_pos[2 * MAXQ], s_base[2 * MAXQ];
+  __shared__ int s_cnt[2 * MAXQ], s_pos[2 * MAXQ];
+  __shared__ int64_t s_base[2 * MAXQ];
   const int p = blockIdx.y;
   typename Tr::Val pv[MAXQ];
   int tb[MAXQ], ta[MAXQ];
@@ -210,7 +214,6 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
   const int64_t hi = (row + n_i < lo + chunk) ? row + n_i : lo + chunk;
   const int64_t v0 = lo < hi ? lo / V::N : 0;
   const int64_t v1 = lo < hi ? (hi + V::N - 1) / V::N : 0;
-  Key* out = buf + int64_t(p) * 2 * Q * L;
 
   constexpr int64_t STEP = int64_t(THREADS) * UNROLL;
   // bands per element: bit 2q below pivot q, bit 2q+1 above it; fields of
@@ -268,7 +271,8 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
     // phase B: one device-memory atomic per band reserves the round's slots
     if (threadIdx.x < 2 * Q) {
       const int c = s_cnt[threadIdx.x];
-      s_base[threadIdx.x] = c ? atomicAdd(&cursor[p * 2 * Q + threadIdx.x], c) : 0;
+      const int r = p * 2 * Q + threadIdx.x;
+      s_base[threadIdx.x] = c ? off[r] + atomicAdd(&cursor[r], c) : 0;
       s_cnt[threadIdx.x] = 0;
       s_pos[threadIdx.x] = 0;
     }
@@ -285,8 +289,7 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
         const Key k = Tr::key(vec[u].r[e]);
         for (; m; m &= m - 1) {
           const int c = __ffs(m) - 1;
-          const int pos = s_base[c] + atomicAdd(&s_pos[c], 1);
-          out[int64_t(c) * L + pos] = (c & 1) ? k : Key(~k);
+          buf[s_base[c] + atomicAdd(&s_pos[c], 1)] = (c & 1) ? k : Key(~k);
         }
       }
     }
@@ -300,13 +303,13 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
 // A row holds cand sort keys (~key below the pivot, key above it: ascending
 // means outward from the pivot).  Keys in bins before the threshold bin are
 // all kept; of the threshold bin only the sub-bins up to the one where the
-// count reaches cap are kept.  The row is compacted in place, the freed tail
-// is refilled with all-ones keys, and cand becomes the kept count.
+// count reaches cap are kept, moved to the front of the row in place; kept
+// is their count.
 template <class Tr>
 __global__ void __launch_bounds__(THREADS)
-trim_kernel(typename Tr::Key* __restrict__ buf, int64_t L, const int* __restrict__ hist,
-            const int* __restrict__ thr, int* __restrict__ cand, int cap,
-            int* __restrict__ max_kept) {
+trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
+            const int* __restrict__ hist, const int* __restrict__ thr,
+            const int* __restrict__ cand, int cap, int* __restrict__ kept) {
   using Key = typename Tr::Key;
   constexpr int SUB_BITS = Tr::BITS - BIN_BITS < BIN_BITS ? Tr::BITS - BIN_BITS : BIN_BITS;
   constexpr int SUB = 1 << SUB_BITS;
@@ -316,13 +319,13 @@ trim_kernel(typename Tr::Key* __restrict__ buf, int64_t L, const int* __restrict
   const int seg = blockIdx.x;
   const int c = cand[seg];
   if (c <= cap) {                       // nothing beyond cap to drop
-    if (threadIdx.x == 0) atomicMax(max_kept, c);
+    if (threadIdx.x == 0) kept[seg] = c;
     return;
   }
   const int t = thr[seg];
   const int b1 = (seg & 1) ? t : NB - 1 - t;          // threshold bin, sort-key space
   const int need = cap - (c - hist[int64_t(seg) * NB + t]);   // >= 1
-  Key* row = buf + int64_t(seg) * L;
+  Key* row = buf + off[seg];
   for (int i = threadIdx.x; i < SUB; i += THREADS) s_hist[i] = 0;
   if (threadIdx.x == 0) s_pos = 0;
   __syncthreads();
@@ -357,39 +360,7 @@ trim_kernel(typename Tr::Key* __restrict__ buf, int64_t L, const int* __restrict
     if (keep) row[atomicAdd(&s_pos, 1)] = k;
     __syncthreads();
   }
-  const int kept = s_pos;
-  for (int i = kept + threadIdx.x; i < c; i += THREADS) row[i] = Key(~Key(0));
-  if (threadIdx.x == 0) {
-    cand[seg] = kept;
-    atomicMax(max_kept, kept);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// emit: first cap keys of each row back to values, sentinel padded
-// ---------------------------------------------------------------------------
-
-template <class Tr>
-__global__ void emit_kernel(const typename Tr::Key* __restrict__ buf, int64_t L,
-                            const int* __restrict__ cand, int64_t segs, int64_t cap,
-                            typename Tr::Raw* __restrict__ below,
-                            typename Tr::Raw* __restrict__ above) {
-  using Key = typename Tr::Key;
-  const int64_t total = segs * cap;
-  for (int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t seg = t / cap, i = t % cap;
-    const int side = int(seg & 1);
-    typename Tr::Raw v;
-    if (i < cand[seg]) {
-      Key k = buf[seg * L + i];
-      if (side == 0) k = Key(~k);
-      v = Tr::raw(k);
-    } else {
-      v = side == 0 ? typename Tr::Raw(Tr::LO) : typename Tr::Raw(Tr::HI);
-    }
-    (side == 0 ? below : above)[(seg >> 1) * cap + i] = v;
-  }
+  if (threadIdx.x == 0) kept[seg] = s_pos;
 }
 
 // ---------------------------------------------------------------------------
@@ -400,7 +371,7 @@ __global__ void emit_kernel(const typename Tr::Key* __restrict__ buf, int64_t L,
 template <class Tr, int MAXQ>
 int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
                int cap, int bps, int* hist, int* eq, int* thr, int* cand,
-               int* counts, int* max_cand, cudaStream_t st) {
+               int* counts, cudaStream_t st) {
   using Raw = typename Tr::Raw;
   const int64_t chunk = (n_i + bps - 1) / bps;
   const size_t smem = size_t(Q) * 2 * NB * sizeof(int);
@@ -412,40 +383,26 @@ int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
       chunk, hist, eq);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   threshold_kernel<<<unsigned(P * Q * 2), 32, 0, st>>>(hist, eq, Q, n_i, cap, thr, cand,
-                                                       counts, max_cand);
+                                                       counts);
   return int(cudaGetLastError());
 }
 
 template <class Tr, int MAXQ>
-int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
-                 int cap, int bps, const int* hist, const int* thr, int* cand,
-                 int* cursor, void* buf_v, int64_t L, int trim, int* max_kept,
-                 cudaStream_t st) {
+int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q, int bps,
+                 const int* thr, const int64_t* off, int* cursor, void* buf, cudaStream_t st) {
   using Raw = typename Tr::Raw;
-  using Key = typename Tr::Key;
-  Key* buf = static_cast<Key*>(buf_v);
   const int64_t chunk = (n_i + bps - 1) / bps;
   compact_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
-      static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q,
-      chunk, thr, cursor, buf, L);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !trim) return int(e);
-  trim_kernel<Tr><<<unsigned(P * Q * 2), THREADS, 0, st>>>(buf, L, hist, thr, cand, cap,
-                                                           max_kept);
+      static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q, chunk,
+      thr, off, cursor, static_cast<typename Tr::Key*>(buf));
   return int(cudaGetLastError());
 }
 
-template <class Tr, int MAXQ>
-int sort_emit_impl(int64_t rows, const int* cand, void* buf_v, int64_t L, int64_t len,
-                   int64_t cap, void* below, void* above, cudaStream_t st) {
-  using Raw = typename Tr::Raw;
-  using Key = typename Tr::Key;
-  Key* buf = static_cast<Key*>(buf_v);
-  const int e = sort_rows<Key>(buf, rows, L, len, st);
-  if (e) return e;
-
-  emit_kernel<Tr><<<grid_for(rows * cap, 256), 256, 0, st>>>(
-      buf, L, cand, rows, cap, static_cast<Raw*>(below), static_cast<Raw*>(above));
+template <class Tr>
+int trim_impl(void* buf, const int64_t* off, const int* hist, const int* thr, const int* cand,
+              int64_t rows, int cap, int* kept, cudaStream_t st) {
+  trim_kernel<Tr><<<unsigned(rows), THREADS, 0, st>>>(
+      static_cast<typename Tr::Key*>(buf), off, hist, thr, cand, cap, kept);
   return int(cudaGetLastError());
 }
 
@@ -469,40 +426,37 @@ int sort_emit_impl(int64_t rows, const int* cand, void* buf_v, int64_t L, int64_
 
 extern "C" int fs_count(int dtype, int maxq, const void* x, long long P, long long n_i,
                         const void* pivots, int Q, int cap, int bps, int* hist, int* eq,
-                        int* thr, int* cand, int* counts, int* max_cand, void* stream) {
+                        int* thr, int* cand, int* counts, void* stream) {
   if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
       bps > 65535)
     return kBadArgument;
   FS_DISPATCH(count_impl, x, P, n_i, pivots, Q, cap, bps, hist, eq, thr, cand, counts,
-              max_cand, static_cast<cudaStream_t>(stream))
-}
-
-// trim != 0 also runs trim_kernel, which leaves the widest kept band in
-// max_kept.
-extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long long n_i,
-                          const void* pivots, int Q, int cap, int bps, const int* hist,
-                          const int* thr, int* cand, int* cursor, void* buf, long long L,
-                          int trim, int* max_kept, void* stream) {
-  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
-      bps > 65535 || L < SORT_TILE || (L & (L - 1)))
-    return kBadArgument;
-  FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, cap, bps, hist, thr, cand, cursor, buf,
-              L, trim, max_kept, static_cast<cudaStream_t>(stream))
-}
-
-// Sorts the first `len` keys of every row (len a power of two, SORT_TILE <=
-// len <= L) and emits the bands.
-extern "C" int fs_sort_emit(int dtype, int maxq, long long rows, const int* cand, void* buf,
-                            long long L, long long len, long long cap, void* below,
-                            void* above, void* stream) {
-  if (rows < 1 || cap < 1 || len < SORT_TILE || len > L || (len & (len - 1)))
-    return kBadArgument;
-  FS_DISPATCH(sort_emit_impl, rows, cand, buf, L, len, cap, below, above,
               static_cast<cudaStream_t>(stream))
 }
 
-// Layout the caller allocates for: histogram bins per (shard, pivot, side),
-// and the least width of a scratch row (rows are a power of two this wide
-// or wider).
+// Pass 2.  off: (P*Q*2,) int64 start of each row in buf (rows of cand keys);
+// cursor: same shape, int32, zeroed by the caller.
+extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long long n_i,
+                          const void* pivots, int Q, int bps, const int* thr,
+                          const long long* off, int* cursor, void* buf, void* stream) {
+  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || bps < 1 || bps > 65535)
+    return kBadArgument;
+  FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, bps, thr,
+              reinterpret_cast<const int64_t*>(off), cursor, buf,
+              static_cast<cudaStream_t>(stream))
+}
+
+// kept: (rows,) int32.  Moves each trimmed row's kept keys to its front.
+extern "C" int fs_trim(int dtype, void* buf, const long long* off, const int* hist,
+                       const int* thr, const int* cand, long long rows, int cap, int* kept,
+                       void* stream) {
+  if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
+  DTYPE_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), hist, thr, cand, rows,
+                 cap, kept, static_cast<cudaStream_t>(stream))
+}
+
+// The band sort: fs_run_sort, fs_merge, fs_expand, fs_run_tile, fs_merge_chunk.
+BAND_SORT_ENTRY_POINTS(fs)
+
+// Histogram bins per (shard, pivot, side).
 extern "C" int fs_num_bins() { return NB; }
-extern "C" int fs_sort_tile() { return SORT_TILE; }

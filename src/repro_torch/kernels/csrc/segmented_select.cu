@@ -487,27 +487,6 @@ trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
   }
 }
 
-// The sort's output policy (common.cuh): row r = 2 * (p, g, q) + side keeps
-// kept[r] keys; its first cap go back to values (the below side stores ~key)
-// into below or above, the rest are the side's sentinel.
-template <class Tr>
-struct BandRows {
-  using Key = typename Tr::Key;
-  using Raw = typename Tr::Raw;
-  const int* kept;
-  int cap;
-  Raw* below;
-  Raw* above;
-  __device__ int len(int64_t r) const { return kept[r]; }
-  __device__ int out_len() const { return cap; }
-  __device__ void put(int64_t r, int i, Key k, bool valid) const {
-    const int side = int(r & 1);
-    const Raw v = valid ? Tr::raw(side == 0 ? Key(~k) : k)
-                        : (side == 0 ? Raw(Tr::LO) : Raw(Tr::HI));
-    (side == 0 ? below : above)[(r >> 1) * int64_t(cap) + i] = v;
-  }
-};
-
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -564,48 +543,11 @@ int trim_impl(void* buf, const int64_t* off, const int* cand, const int* thr,
   return int(cudaGetLastError());
 }
 
-template <class Tr>
-int run_sort_impl(void* buf, const int64_t* off, const int* kept, int cap, void* below,
-                  void* above, const int* blk_row, const int* blk_run, int64_t blocks,
-                  cudaStream_t st) {
-  using Key = typename Tr::Key;
-  using Raw = typename Tr::Raw;
-  constexpr int smem = run_smem<Key>();
-  cudaError_t e = cudaFuncSetAttribute(run_sort<Key, BandRows<Tr>>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return int(e);
-  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
-  run_sort<Key, BandRows<Tr>><<<unsigned(blocks), RUN_THREADS, smem, st>>>(
-      rows, static_cast<Key*>(buf), off, blk_row, blk_run);
-  return int(cudaGetLastError());
-}
-
-template <class Tr>
-int merge_impl(const void* src, const int64_t* src_off, void* dst, const int64_t* dst_off,
-               const int* kept, int cap, void* below, void* above, int pass,
-               const int* blk_row, const int* blk_chunk, int64_t blocks, cudaStream_t st) {
-  using Key = typename Tr::Key;
-  using Raw = typename Tr::Raw;
-  const BandRows<Tr> rows{kept, cap, static_cast<Raw*>(below), static_cast<Raw*>(above)};
-  merge_pass<Key, BandRows<Tr>><<<unsigned(blocks), MERGE_THREADS, 0, st>>>(
-      rows, static_cast<const Key*>(src), src_off, static_cast<Key*>(dst), dst_off, pass,
-      blk_row, blk_chunk);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float64.  Every function returns a
-// cudaError_t value, 0 on success, -1 for an argument the kernels do not take.
-#define SS_DISPATCH(FN, ...)                                                  \
-  switch (dtype) {                                                            \
-    case 0: return FN<F32>(__VA_ARGS__);                                      \
-    case 1: return FN<BF16>(__VA_ARGS__);                                     \
-    case 2: return FN<I32>(__VA_ARGS__);                                      \
-    case 3: return FN<F64>(__VA_ARGS__);                                      \
-    default: return kBadArgument;                                             \
-  }
-
+// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float64 (DTYPE_DISPATCH, common.cuh).
+// Every function returns a cudaError_t value, 0 on success, -1 for an
+// argument the kernels do not take.
 static bool shape_ok(long long P, long long n_i, int G, int Q, int bps) {
   return P >= 1 && P <= 65535 && n_i >= 1 && G >= 1 && Q >= 1 &&
          (long long)G * Q <= MAX_PIVOTS && bps >= 1 && bps <= 65535;
@@ -615,7 +557,7 @@ static bool shape_ok(long long P, long long n_i, int G, int Q, int bps) {
 // ceil(G / this)).
 extern "C" int ss_groups_per_slice(int dtype, int G, int Q) {
   if (G < 1 || Q < 1) return kBadArgument;
-  SS_DISPATCH(groups_per_slice, G, Q)
+  DTYPE_DISPATCH(groups_per_slice, G, Q)
 }
 
 // Pass 1.  hist: (P, G, ss_num_bins()) int32, pin: (P, G, Q, 3) int32, both
@@ -624,8 +566,8 @@ extern "C" int ss_hist(int dtype, const void* x, const int* keys, long long P, l
                        const void* pivots, int G, int Q, int bps, int* hist, int* pin,
                        void* stream) {
   if (!shape_ok(P, n_i, G, Q, bps)) return kBadArgument;
-  SS_DISPATCH(hist_impl, x, keys, P, n_i, pivots, G, Q, bps, hist, pin,
-              static_cast<cudaStream_t>(stream))
+  DTYPE_DISPATCH(hist_impl, x, keys, P, n_i, pivots, G, Q, bps, hist, pin,
+                 static_cast<cudaStream_t>(stream))
 }
 
 // The scan.  thr, cand, thrcnt: (P, G, Q, 2) int32; counts: (P, G, Q, 3).
@@ -633,8 +575,8 @@ extern "C" int ss_threshold(int dtype, const int* hist, const int* pin, const vo
                             long long P, int G, int Q, int cap, int* thr, int* cand,
                             int* thrcnt, int* counts, void* stream) {
   if (!shape_ok(P, 1, G, Q, 1) || cap < 1) return kBadArgument;
-  SS_DISPATCH(threshold_impl, hist, pin, pivots, P, G, Q, cap, thr, cand, thrcnt, counts,
-              static_cast<cudaStream_t>(stream))
+  DTYPE_DISPATCH(threshold_impl, hist, pin, pivots, P, G, Q, cap, thr, cand, thrcnt, counts,
+                 static_cast<cudaStream_t>(stream))
 }
 
 // Pass 2.  off: (P*G*Q*2,) int64 start of each row in buf (rows of cand keys);
@@ -643,9 +585,9 @@ extern "C" int ss_compact(int dtype, const void* x, const int* keys, long long P
                           const void* pivots, int G, int Q, int bps, const int* thr,
                           const long long* off, int* cursor, void* buf, void* stream) {
   if (!shape_ok(P, n_i, G, Q, bps)) return kBadArgument;
-  SS_DISPATCH(compact_impl, x, keys, P, n_i, pivots, G, Q, bps, thr,
-              reinterpret_cast<const int64_t*>(off), cursor, buf,
-              static_cast<cudaStream_t>(stream))
+  DTYPE_DISPATCH(compact_impl, x, keys, P, n_i, pivots, G, Q, bps, thr,
+                 reinterpret_cast<const int64_t*>(off), cursor, buf,
+                 static_cast<cudaStream_t>(stream))
 }
 
 // kept: (rows,) int32.  Moves each trimmed row's kept keys to its front.
@@ -653,55 +595,12 @@ extern "C" int ss_trim(int dtype, void* buf, const long long* off, const int* ca
                        const int* thr, const int* thrcnt, long long rows, int cap, int* kept,
                        void* stream) {
   if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
-  SS_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), cand, thr, thrcnt, rows,
-              cap, kept, static_cast<cudaStream_t>(stream))
+  DTYPE_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), cand, thr, thrcnt, rows,
+                 cap, kept, static_cast<cudaStream_t>(stream))
 }
 
-// The run sort: one block per (blk_row, blk_run) pair, `blocks` of them; the
-// runs are sorted in place in buf, rows of one run go to below/above
-// ((P, G, Q, cap) of x's type).
-extern "C" int ss_run_sort(int dtype, void* buf, const long long* off, const int* kept, int cap,
-                           void* below, void* above, const int* blk_row, const int* blk_run,
-                           long long blocks, void* stream) {
-  if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
-  SS_DISPATCH(run_sort_impl, buf, reinterpret_cast<const int64_t*>(off), kept, cap, below,
-              above, blk_row, blk_run, blocks, static_cast<cudaStream_t>(stream))
-}
+// The band sort: ss_run_sort, ss_merge, ss_expand, ss_run_tile, ss_merge_chunk.
+BAND_SORT_ENTRY_POINTS(ss)
 
-// Merge pass `pass` from src (rows at src_off) to dst (rows at dst_off) or,
-// for the rows it finishes, to below/above; one block per (blk_row,
-// blk_chunk) pair.
-extern "C" int ss_merge(int dtype, const void* src, const long long* src_off, void* dst,
-                        const long long* dst_off, const int* kept, int cap, void* below,
-                        void* above, int pass, const int* blk_row, const int* blk_chunk,
-                        long long blocks, void* stream) {
-  if (blocks < 1 || blocks > 0x7FFFFFFFLL || cap < 1 || pass < 0 || pass > 30)
-    return kBadArgument;
-  SS_DISPATCH(merge_impl, src, reinterpret_cast<const int64_t*>(src_off), dst,
-              reinterpret_cast<const int64_t*>(dst_off), kept, cap, below, above, pass, blk_row,
-              blk_chunk, blocks, static_cast<cudaStream_t>(stream))
-}
-
-// The sort's block table: blk_row, blk_idx (first[segments],) int32 from
-// first (segments + 1,) int32, `rows` segments a launch.
-extern "C" int ss_expand(const int* first, long long segments, int rows, int* blk_row,
-                         int* blk_idx, void* stream) {
-  if (segments < 1 || rows < 1) return kBadArgument;
-  const int grid = int(segments < 65535 ? segments : 65535);
-  expand_blocks<128><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      first, segments, rows, blk_row, blk_idx);
-  return int(cudaGetLastError());
-}
-
-// Keys of one run of the sort, and of one merge block's output.
-extern "C" int ss_run_tile(int dtype) {
-  switch (dtype) {
-    case 0: case 2: return run_tile<uint32_t>();
-    case 1: return run_tile<uint16_t>();
-    case 3: return run_tile<unsigned long long>();
-    default: return kBadArgument;
-  }
-}
-extern "C" int ss_merge_chunk() { return MERGE_CHUNK; }
 extern "C" int ss_num_bins() { return NBS; }
 extern "C" int ss_max_pivots() { return MAX_PIVOTS; }

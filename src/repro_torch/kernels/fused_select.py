@@ -26,21 +26,22 @@ one to its kernel's count in ``LAUNCHES``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import cuda_build as cb
+from . import band_sort, cuda_build as cb
 
 MULTI_MAX_PIVOTS = 8            # pivots one fused_select_multi launch takes
 PASSES_PER_LAUNCH = 2           # full reads of the data per launch
 _SIGNATURES = {
     "fs_count": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
-                  cb.P, cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
-    "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
-                    cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P, cb.P], cb.I),
-    "fs_sort_emit": ([cb.I, cb.I, cb.L, cb.P, cb.P, cb.L, cb.L, cb.L, cb.P,
-                      cb.P, cb.P], cb.I),
+                  cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
+    "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.P, cb.P,
+                    cb.P, cb.P, cb.P], cb.I),
+    "fs_trim": ([cb.I, cb.P, cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P, cb.P],
+                cb.I),
     "fs_num_bins": ([], cb.I),
-    "fs_sort_tile": ([], cb.I),
+    **band_sort.signatures("fs"),
 }
 _HIST_SIGNATURES = {
     "bh_histogram": ([cb.I, cb.P, cb.L, cb.P, cb.I, cb.P, cb.I, cb.P], cb.I),
@@ -85,59 +86,50 @@ def _prepare(x: torch.Tensor, pivots: torch.Tensor, cap: int):
     return x, pivots
 
 
-def _pow2_at_least(n: int) -> int:
-    return 1 << (max(1, n) - 1).bit_length()
-
-
 def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
     """One launch: two passes over x for up to ``maxq`` pivots."""
     P, n_i = x.shape
     Q = pivots.numel()
     dev = x.device
     lib = _lib()
+    rows = P * Q * 2
+    i32 = dict(dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = cb.stream(dev)
+        st = cb.stream(dev)
         bps = cb.shard_blocks(dev, P, n_i)
-        i32 = dict(dtype=torch.int32, device=dev)
         hist = torch.zeros((P, Q, 2, lib.fs_num_bins()), **i32)
         eq = torch.zeros((P, Q), **i32)
         thr = torch.empty((P, Q, 2), **i32)
         cand = torch.empty((P, Q, 2), **i32)
         counts = torch.empty((P, Q, 3), **i32)
-        max_cand = torch.zeros((1,), **i32)
         code = cb.DTYPE_CODE[x.dtype]
         cb.check(lib.fs_count(code, maxq, x.data_ptr(), P, n_i,
-                            pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
-                            eq.data_ptr(), thr.data_ptr(), cand.data_ptr(),
-                            counts.data_ptr(), max_cand.data_ptr(), stream),
-               "fused_select count pass")
-        # the scratch rows are as wide as the fullest band, a power of two
-        # of at least one sort tile: the first host sync of the launch
-        tile = lib.fs_sort_tile()
-        L = max(_pow2_at_least(int(max_cand.item())), tile)
-        # trimming the bands to about cap pays only when it can shorten
-        # the sorted rows
-        trim = L > max(_pow2_at_least(cap), tile)
-        rows = P * Q * 2
-        buf = torch.full((rows, L), -1, dtype=cb.KEY_DTYPE[x.dtype], device=dev)
-        cursor = torch.zeros((rows,), **i32)
-        max_kept = torch.zeros((1,), **i32)
-        cb.check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
                               pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
-                              thr.data_ptr(), cand.data_ptr(),
-                              cursor.data_ptr(), buf.data_ptr(), L, int(trim),
-                              max_kept.data_ptr(), stream),
-               "fused_select compaction pass")
-        # the trimmed bands set how much of each row the sort covers: a
-        # second host sync
-        length = (max(_pow2_at_least(int(max_kept.item())), tile) if trim
-                  else L)
+                              eq.data_ptr(), thr.data_ptr(), cand.data_ptr(),
+                              counts.data_ptr(), st),
+                 "fused_select count pass")
+        # each band's scratch row is exactly as wide as its candidates: the
+        # first host sync of the launch
+        cand_h = cand.reshape(-1).cpu().numpy()
+        off = torch.from_numpy(band_sort.row_offsets(cand_h)).to(dev)
+        buf = torch.empty(max(1, int(cand_h.sum(dtype=np.int64))),
+                          dtype=cb.KEY_DTYPE[x.dtype], device=dev)
+        cursor = torch.zeros(rows, **i32)
+        cb.check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
+                                pivots.data_ptr(), Q, bps, thr.data_ptr(),
+                                off.data_ptr(), cursor.data_ptr(),
+                                buf.data_ptr(), st),
+                 "fused_select compaction pass")
+        kept = torch.empty(rows, **i32)
+        cb.check(lib.fs_trim(code, buf.data_ptr(), off.data_ptr(),
+                             hist.data_ptr(), thr.data_ptr(), cand.data_ptr(),
+                             rows, cap, kept.data_ptr(), st),
+                 "fused_select trim")
         below = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
-        cb.check(lib.fs_sort_emit(code, maxq, rows, cand.data_ptr(),
-                                buf.data_ptr(), L, length, cap,
-                                below.data_ptr(), above.data_ptr(), stream),
-               "fused_select band sort")
+        # the kept keys set the sort's runs and passes: the second host sync
+        band_sort.sort_bands(lib, "fs", code, buf, off, kept, cap, below,
+                             above, st, "fused_select")
     return counts, below, above
 
 

@@ -1,4 +1,6 @@
-"""The host plan of ``segmented_select``'s band sort (``run_layout``).
+"""The host plan of the band sort that ``fused_select(_multi)`` and
+``segmented_select`` share (``kernels/band_sort.py``: ``run_layout``,
+``row_offsets``).
 
 Runs on the CPU: the plan is numpy.  The kernels it drives are held
 against their plain version on the card (``tests/test_torch_cuda.py``,
@@ -7,7 +9,7 @@ against their plain version on the card (``tests/test_torch_cuda.py``,
 import numpy as np
 import pytest
 
-from repro_torch.kernels.segmented_select import run_layout
+from repro_torch.kernels.band_sort import row_offsets, run_layout
 
 TILE, CAP, CHUNK = 8, 30, 4
 
@@ -79,3 +81,79 @@ def test_merge_blocks_cover_each_pass_once(seed):
                 continue
             end = CAP if lay.runs[r] <= 2 << p else kept[r]
             assert mine.tolist() == list(range(-(-end // CHUNK)))
+
+
+# The fused kernels' rows: (shard p, pivot q, side) in that order, P * Q * 2
+# of them, at the main path's cap and run tile of f32 keys.
+F_TILE, F_CAP, F_CHUNK = 32768, 100_666, 2048
+
+
+def _fused_kept(P, Q, seed):
+    """Kept keys of every fused row: about cap where the band was trimmed,
+    fewer where a pivot lies near the shard's end (one side short or
+    empty)."""
+    rng = np.random.default_rng(seed)
+    kept = rng.integers(F_CAP, F_CAP + 3000, size=(P, Q, 2))
+    kept[:, 0, 0] = rng.integers(0, F_TILE, size=P)      # pivot near the low end
+    kept[:, -1, 1] = 0                                   # pivot above every value
+    return kept.reshape(-1)
+
+
+def test_fused_rows_of_the_main_path_take_two_merge_passes():
+    P, Q = 120, 5
+    kept = _fused_kept(P, Q, 0)
+    lay = run_layout(kept, F_TILE, F_CAP, F_CHUNK)
+    assert len(lay.runs) == P * Q * 2
+    # ~cap kept keys are 4 runs of 32,768: two passes, the last merging cap
+    assert lay.passes == 2
+    runs = lay.runs.reshape(P, Q, 2)
+    assert (runs[:, 0, 0] <= 1).all() and (runs[:, -1, 1] == 0).all()
+    assert (runs[:, 1:-1] == 4).all()
+    rows, chunks = _blocks(lay, 2)
+    full = np.flatnonzero(lay.runs > 2)
+    assert np.array_equal(np.unique(rows), full)
+    assert (np.bincount(rows, minlength=len(kept))[full]
+            == -(-F_CAP // F_CHUNK)).all()
+
+
+def test_fused_rows_of_one_run_skip_the_merge_buffer():
+    """A cap below one run (the single kernel's small caps) sorts every row
+    in one block and needs no merge pass."""
+    kept = np.array([0, 1, 37, F_TILE, F_TILE, 5])        # P = 1, Q = 3
+    lay = run_layout(kept, F_TILE, 37, F_CHUNK)
+    assert lay.passes == 0 and lay.merge_total == 0
+    rows, runs = _blocks(lay, 0)
+    assert rows.tolist() == list(range(6)) and runs.tolist() == [0] * 6
+
+
+def test_fused_row_with_an_unpaired_last_run():
+    """5 runs: pass 0 merges (0, 1), (2, 3) and copies run 4, pass 1 merges
+    (01, 23) and copies 4 again, pass 2 merges the two and writes cap."""
+    kept = np.array([4 * F_TILE + 10, F_CAP])
+    lay = run_layout(kept, F_TILE, F_CAP, F_CHUNK)
+    assert lay.runs.tolist() == [5, 4] and lay.passes == 3
+    for p, want in ((0, [kept[0], kept[1]]), (1, [kept[0], F_CAP]),
+                    (2, [F_CAP, 0])):
+        rows, chunks = _blocks(lay, p + 1)
+        got = [int(np.sum(rows == r)) for r in range(2)]
+        assert got == [-(-n // F_CHUNK) for n in want], p
+
+
+@pytest.mark.parametrize("cand", [[0], [7], [0, 0, 3], [5, 0, 2, 9],
+                                  [2 ** 31 - 1, 2 ** 31 - 1, 4]])
+def test_row_offsets_pack_rows_back_to_back(cand):
+    off = row_offsets(np.array(cand, dtype=np.int32))
+    assert off.dtype == np.int64 and len(off) == len(cand)
+    assert off[0] == 0
+    assert np.array_equal(off[1:] - off[:-1], np.array(cand[:-1]))
+
+
+def test_row_offsets_of_the_fused_rows_follow_shard_pivot_side_order():
+    cand = np.arange(1, 2 * 3 * 2 + 1).reshape(2, 3, 2)   # (P, Q, side)
+    off = row_offsets(cand)
+    # row (p, q, side) = 2 * (p * Q + q) + side starts after every row before
+    for p in range(2):
+        for q in range(3):
+            for side in range(2):
+                r = 2 * (p * 3 + q) + side
+                assert off[r] == cand.reshape(-1)[:r].sum()

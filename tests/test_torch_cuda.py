@@ -83,6 +83,51 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         pv.numel() + 3)
 
 
+def _wide_fused_data(dtype, device):
+    """(2, 2^20) normal values with a tenth of them ties: both zeros, the
+    tiniest subnormals of either sign (in the canonical bin of 0.0 or the
+    one below it) and 1.0; for int32, 0, +-1 and 5."""
+    rng = np.random.default_rng(12)
+    n = 2 * (1 << 20)
+    if dtype == torch.int32:
+        x = np.rint(rng.normal(size=n) * 1000)
+        table = np.array([0.0, 0.0, 1.0, -1.0, 5.0])
+    else:
+        tiny = 1e-310 if dtype == torch.float64 else 1e-40
+        x = rng.normal(size=n) * 100
+        table = np.array([-0.0, 0.0, tiny, -tiny, 1.0])
+    tie = rng.random(n) < 0.1
+    x[tie] = table[rng.integers(0, len(table), int(tie.sum()))]
+    return torch.from_numpy(x).to(device=device, dtype=dtype).reshape(2, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_kernels_sort_wide_bands_on_card(cuda, dtype):
+    """Bands of one run to ten runs of the band sort (cap 40,000 and
+    150,000 at 2^20 values a shard), trimmed and whole, with ties and both
+    zeros across run boundaries; pivots +-0.0 and their subnormal
+    neighbours, the extremes and beyond, duplicated, 9 or more of them
+    (two multi launches)."""
+    x = _wide_fused_data(dtype, cuda)
+    pv = _pivots(x)
+    if dtype.is_floating_point:
+        tiny = 1e-310 if dtype == torch.float64 else 1e-40
+        pv = torch.cat([pv, torch.tensor([tiny, -tiny], dtype=torch.float64,
+                                         device=cuda).to(dtype)])
+    multi = torch.cat([pv, pv[:3]])
+    for cap in (40_000, 150_000):
+        for i in range(pv.numel()):
+            got = fs.fused_select(x, pv[i], cap)
+            want = ref.fused_select_ref(x, pv[i], cap)
+            for g, w in zip(got, want):
+                assert _bits(g) == _bits(w), (dtype, cap, i)
+        got = fs.fused_select_multi(x, multi, cap)
+        want = ref.fused_select_multi_ref(x, multi, cap)
+        for g, w in zip(got, want):
+            assert _bits(g) == _bits(w), (dtype, cap)
+
+
 @pytest.mark.cuda
 def test_kernel_route_counts_two_passes(cuda):
     x = torch.randn(4, 5000, device=cuda)
