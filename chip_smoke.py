@@ -12,7 +12,11 @@
    edge cases (pivots at and beyond the extremes, all-equal data, ties,
    mixed -0.0/+0.0, the dtype's sentinels in the data, n not a multiple of
    the vector width, cap = n_i, duplicate pivots, more pivots than one
-   launch takes; for segmented_select also empty groups, keys -1 and G, one
+   launch takes; for both fused kernels also bands wider than one run of
+   the band sort at 2^20 values a shard (1 to 10 runs, trimmed and whole,
+   ties and mixed -0.0/+0.0 across run boundaries, pivots +-0.0 beside
+   subnormal neighbours in their canonical bin); for segmented_select also
+   empty groups, keys -1 and G, one
    group holding all the data, G*Q = 1, G*Q too large for one block's
    shared memory, and bands wider than one run of the band sort: kept
    counts 1, T - 1, T, T + 1, 2T + 3, 3T + 5 and at least 2^17 (T the run
@@ -250,6 +254,56 @@ def fused_parity(tally) -> None:
                 want = ref.fused_select_multi_ref(x, multi, cap)
                 tally.add("fused_select_multi", _same_bits(got, want),
                           f"{dtype} {kind} {shape} cap={cap}")
+    torch.cuda.synchronize()
+
+
+def _wide_fused_case(dtype, kind: str, gen):
+    """(2, 2^20) data whose bands, at caps 40,000 and 150,000, take 1 to 10
+    runs of the band sort (T = 65,536, 32,768 or 16,384 keys for 2-, 4- and
+    8-byte keys), some trimmed and some whole; kind "zeros" makes a tenth
+    of the values ties across run boundaries: both zeros, the subnormals
+    +-tiny (in the canonical bin of 0.0 and the one below it) and 1.0
+    (int32: 0, +-1 and 5).  Pivots: ``_pivots_for``'s and +-tiny, 1.0 (+-1
+    for int32), so that +-0.0 share a canonical bin with their
+    neighbours."""
+    shape = (2, 1 << 20)
+    x = _case_data(dtype, "normal", shape, gen)
+    ints = dtype == torch.int32
+    tiny = 1e-310 if dtype == torch.float64 else 1e-40
+    table = torch.tensor([0.0, 0.0, 1.0, -1.0, 5.0] if ints
+                         else [-0.0, 0.0, tiny, -tiny, 1.0],
+                         dtype=torch.float64, device="cuda").to(dtype)
+    if kind == "zeros":
+        flat = x.view(-1)
+        tie = torch.rand(flat.shape, generator=gen, device="cuda") < 0.1
+        pick = torch.randint(0, table.numel(), flat.shape, generator=gen,
+                             device="cuda")
+        flat[tie] = table[pick[tie]]
+    pivots = torch.cat([_pivots_for(x), table[2:4] if ints else table[2:]])
+    return x, pivots
+
+
+def fused_wide_parity(tally) -> None:
+    """Both fused kernels on bands wider than one run of the band sort,
+    against their plain versions: ``_wide_fused_case`` on every dtype,
+    each pivot alone and all of them with three repeated (two multi
+    launches)."""
+    from repro_torch.kernels import fused_select as fs, ref
+    gen = torch.Generator(device="cuda").manual_seed(2345)
+    for dtype in DTYPES:
+        for kind in ("normal", "zeros"):
+            x, pivots = _wide_fused_case(dtype, kind, gen)
+            multi = torch.cat([pivots, pivots[:3]])
+            for cap in (40_000, 150_000):
+                for i in range(pivots.numel()):
+                    got = fs.fused_select(x, pivots[i], cap)
+                    want = ref.fused_select_ref(x, pivots[i], cap)
+                    tally.add("fused_select", _same_bits(got, want),
+                              f"wide {dtype} {kind} cap={cap} pivot#{i}")
+                got = fs.fused_select_multi(x, multi, cap)
+                want = ref.fused_select_multi_ref(x, multi, cap)
+                tally.add("fused_select_multi", _same_bits(got, want),
+                          f"wide {dtype} {kind} cap={cap}")
     torch.cuda.synchronize()
 
 
@@ -886,6 +940,7 @@ def main() -> int:
 
     tally = Tally()
     fused_parity(tally)
+    fused_wide_parity(tally)
     counting_parity(tally)
     segmented_parity(tally)
     segmented_wide_parity(tally)

@@ -9,12 +9,12 @@ the bands as values.  This module is the host side of that sort:
                  per-row candidate counts;
 ``run_layout``   how the run sort and the merge passes cover rows of given
                  kept counts (a numpy plan, tested on the CPU);
-``sort_bands``   the launches: the block tables (built on the card from
-                 the plan's per-row counts), the run sort, and the merge
-                 passes ping-ponging between the scratch rows and one merge
-                 buffer.
+``trim_sort_bands``  the launches: the trim, the block tables (built on the
+                     card from the plan's per-row counts), the run sort,
+                     and the merge passes ping-ponging between the scratch
+                     rows and one merge buffer.
 
-Each kernel's library exports the same five entry points under its own
+Each kernel's library exports the same six entry points under its own
 prefix (``fs_``, ``ss_``), which ``signatures`` declares.
 """
 from __future__ import annotations
@@ -30,6 +30,8 @@ from . import cuda_build as cb
 def signatures(prefix: str) -> dict:
     """ctypes declarations of a library's band-sort entry points."""
     return {
+        f"{prefix}_trim": ([cb.I, cb.P, cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P,
+                            cb.P], cb.I),
         f"{prefix}_run_sort": ([cb.I, cb.P, cb.P, cb.P, cb.I, cb.P, cb.P, cb.P,
                                 cb.P, cb.L, cb.P], cb.I),
         f"{prefix}_merge": ([cb.I, cb.P, cb.P, cb.P, cb.P, cb.P, cb.I, cb.P,
@@ -89,17 +91,22 @@ def run_layout(kept: np.ndarray, tile: int, cap: int,
                      first.astype(np.int32), starts)
 
 
-def sort_bands(lib, prefix: str, code: int, buf: torch.Tensor,
-               off: torch.Tensor, kept: torch.Tensor, cap: int,
-               below: torch.Tensor, above: torch.Tensor, st,
-               what: str) -> None:
-    """Sort every row of ``buf`` (row r: ``kept[r]`` keys from ``off[r]``)
-    and write its first ``cap`` keys as values, sentinel padded, into
-    ``below``/``above`` (row 2i is band i's below side, row 2i + 1 its
-    above side).  Reads ``kept`` on the host: a sync.  ``what`` names the
-    kernel in errors."""
+def trim_sort_bands(lib, prefix: str, code: int, buf: torch.Tensor,
+                    off: torch.Tensor, cand: torch.Tensor, thr: torch.Tensor,
+                    thrcnt: torch.Tensor, cap: int, below: torch.Tensor,
+                    above: torch.Tensor, st, what: str) -> None:
+    """Trim every row of ``buf`` (row r: ``cand[r]`` keys from ``off[r]``,
+    its threshold bin ``thr[r]`` holding ``thrcnt[r]`` of them) to about
+    ``cap`` kept keys at its front, sort them, and write the first ``cap``
+    as values, sentinel padded, into ``below``/``above`` (row 2i is band
+    i's below side, row 2i + 1 its above side).  Reads the kept counts on
+    the host: a sync.  ``what`` names the kernel in errors."""
     dev = buf.device
-    rows = kept.numel()
+    rows = cand.numel()
+    kept = torch.empty(rows, dtype=torch.int32, device=dev)
+    cb.check(getattr(lib, f"{prefix}_trim")(
+        code, buf.data_ptr(), off.data_ptr(), cand.data_ptr(), thr.data_ptr(),
+        thrcnt.data_ptr(), rows, cap, kept.data_ptr(), st), f"{what} trim")
     lay = run_layout(kept.cpu().numpy(), getattr(lib, f"{prefix}_run_tile")(code),
                      cap, getattr(lib, f"{prefix}_merge_chunk")())
     first = torch.from_numpy(lay.first).to(dev)

@@ -232,6 +232,7 @@ constexpr int RUN_THREADS = 512;
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_KPT = 8;
 constexpr int MERGE_CHUNK = MERGE_THREADS * MERGE_KPT;   // keys one merge block writes
+constexpr int TRIM_THREADS = 256;
 
 // The (row, index) table of the sort's launches: segment s (row s % rows of
 // one launch) owns entries first[s] .. first[s + 1] - 1, first being an
@@ -402,6 +403,116 @@ merge_pass(Rows rows, const Key* __restrict__ src, const int64_t* __restrict__ s
 }
 
 // ---------------------------------------------------------------------------
+// the trim: how much of its threshold bin each overfull band keeps
+// ---------------------------------------------------------------------------
+
+// The band kernels bin each band's candidates by the top BIN_BITS bits of
+// the canonical key, counted outward from the pivot: thr[r] is row r's
+// threshold bin, thrcnt[r] its count on the row's side.
+template <class Tr, int BIN_BITS>
+struct Trim {
+  using Key = typename Tr::Key;
+  static constexpr int NB = 1 << BIN_BITS;
+  static constexpr int SUB_BITS = Tr::BITS - BIN_BITS < 11 ? Tr::BITS - BIN_BITS : 11;
+  static constexpr int SUB = 1 << SUB_BITS;
+  static constexpr int SUB_SHIFT = Tr::BITS - BIN_BITS - SUB_BITS;
+  // a stored key as a canonical key that ascends from the pivot outward
+  __device__ static Key outward(Key s, int side) {
+    const Key ck = canon<Tr>(side == 0 ? Key(~s) : s);
+    return side == 0 ? Key(~ck) : ck;
+  }
+  __device__ static int bin(Key o) { return int(o >> (Tr::BITS - BIN_BITS)); }
+  __device__ static int sub(Key o) { return int(o >> SUB_SHIFT) & (SUB - 1); }
+};
+
+// kept[r]: the keys row r keeps.  A row of more than cap candidates keeps
+// those in bins nearer the pivot and, of its threshold bin, the sub-bins up
+// to the first at which the count reaches cap; its kept keys are then moved
+// to the front of its row, in place.  The kept keys are the row's smallest,
+// since the outward key ascends with the stored key.
+template <class Tr, int BIN_BITS>
+__global__ void __launch_bounds__(TRIM_THREADS)
+trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
+            const int* __restrict__ cand, const int* __restrict__ thr,
+            const int* __restrict__ thrcnt, int cap, int* __restrict__ kept) {
+  using T = Trim<Tr, BIN_BITS>;
+  using Key = typename Tr::Key;
+  constexpr int PER = 8;                          // keys a thread holds per round
+  __shared__ int s_hist[T::SUB];
+  __shared__ int s_b2, s_cur;
+  const int64_t r = blockIdx.x;
+  const int c = cand[r];
+  if (c <= cap) {
+    if (threadIdx.x == 0) kept[r] = c;
+    return;
+  }
+  const int side = int(r & 1);
+  const int b1 = side == 0 ? T::NB - 1 - thr[r] : thr[r];
+  const int before = c - thrcnt[r];                 // keys in bins nearer the pivot
+  const int need = cap - before;                    // >= 1
+  for (int i = threadIdx.x; i < T::SUB; i += TRIM_THREADS) s_hist[i] = 0;
+  __syncthreads();
+  Key* row = buf + off[r];
+  for (int i = threadIdx.x; i < c; i += TRIM_THREADS) {
+    const Key o = T::outward(row[i], side);
+    if (T::bin(o) == b1) atomicAdd(&s_hist[T::sub(o)], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0, b2 = T::SUB - 1;
+    for (int i = 0; i < T::SUB; ++i) {
+      run += s_hist[i];
+      if (run >= need) { b2 = i; break; }
+    }
+    kept[r] = before + run;
+    s_b2 = before + run < c ? b2 : -1;
+    s_cur = 0;
+  }
+  __syncthreads();
+  const int b2 = s_b2;
+  if (b2 < 0) return;
+  // every key of a round is read before any is written, and the writes end
+  // at or before the round's last key
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < c; base += TRIM_THREADS * PER) {
+    Key v[PER];
+    bool keep[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int i = base + q * TRIM_THREADS + threadIdx.x;
+      keep[q] = false;
+      if (i < c) {
+        v[q] = row[i];
+        const Key o = T::outward(v[q], side);
+        const int hb = T::bin(o);
+        keep[q] = hb < b1 || (hb == b1 && T::sub(o) <= b2);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, keep[q]);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_cur, __popc(m));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0);
+      if (keep[q]) row[at + __popc(m & ((1u << lane) - 1))] = v[q];
+    }
+    __syncthreads();
+  }
+}
+
+template <int BIN_BITS>
+struct BandTrim {
+  template <class Tr>
+  static int launch(void* buf, const int64_t* off, const int* cand, const int* thr,
+                    const int* thrcnt, int64_t rows, int cap, int* kept, cudaStream_t st) {
+    trim_kernel<Tr, BIN_BITS><<<unsigned(rows), TRIM_THREADS, 0, st>>>(
+        static_cast<typename Tr::Key*>(buf), off, cand, thr, thrcnt, cap, kept);
+    return int(cudaGetLastError());
+  }
+};
+
+// ---------------------------------------------------------------------------
 // the band sort: output policy and launches shared by the band kernels
 // ---------------------------------------------------------------------------
 
@@ -467,9 +578,12 @@ int band_merge(const void* src, const int64_t* src_off, void* dst, const int64_t
     default: return kBadArgument;                                             \
   }
 
-// The band sort's C entry points of one library, each name under its prefix
-// (kernels/band_sort.py declares and drives them).  Each returns a
-// cudaError_t value, 0 on success, -1 for an argument the kernels refuse.
+// The trim's and the band sort's C entry points of one library, each name
+// under its prefix, for its bins of BIN_BITS bits (kernels/band_sort.py
+// declares and drives them).  Each returns a cudaError_t value, 0 on
+// success, -1 for an argument the kernels refuse.
+//   _trim         kept: (rows,) int32; moves each trimmed row's kept keys to
+//                 the front of its row
 //   _run_sort     one block per (blk_row, blk_run) pair, `blocks` of them: the
 //                 runs sorted in place in buf (row r from off[r]), rows of one
 //                 run straight to below/above (bands of cap values)
@@ -480,7 +594,17 @@ int band_merge(const void* src, const int64_t* src_off, void* dst, const int64_t
 //                 from first (segments + 1,) int32, `rows` segments a launch
 //   _run_tile     keys of one run for dtype; _merge_chunk: keys of one merge
 //                 block's output
-#define BAND_SORT_ENTRY_POINTS(PREFIX)                                        \
+#define BAND_SORT_ENTRY_POINTS(PREFIX, BIN_BITS)                              \
+  extern "C" int PREFIX##_trim(int dtype, void* buf, const long long* off,     \
+                               const int* cand, const int* thr,                \
+                               const int* thrcnt, long long rows, int cap,     \
+                               int* kept, void* stream) {                      \
+    if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;       \
+    DTYPE_DISPATCH(BandTrim<BIN_BITS>::launch, buf,                            \
+                   reinterpret_cast<const int64_t*>(off), cand, thr, thrcnt,   \
+                   rows, cap, kept,                                            \
+                   static_cast<cudaStream_t>(stream))                          \
+  }                                                                            \
   extern "C" int PREFIX##_run_sort(int dtype, void* buf, const long long* off,  \
                                    const int* kept, int cap, void* below,       \
                                    void* above, const int* blk_row,             \

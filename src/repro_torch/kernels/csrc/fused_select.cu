@@ -13,19 +13,26 @@
 // Q * 2 * P * cap values (97 MB per pivot at cap = 100,666).  The TPU kernel
 // keeps a running top_k of the bands in VMEM; a cap of ~10^5 values does not
 // fit in 227 KB of shared memory, so this design replaces the running merge
-// with a threshold:
-//   pass 1  (hist_kernel)      one read: eq counts, and per (shard, pivot,
-//                              side) a 2048-bin shared-memory histogram of
-//                              the top 11 bits of the order-preserving key;
+// with a threshold, and sorts each band's keys where they were compacted:
+//   pass 1  (hist_kernel)      one read: per shard one 2048-bin shared-memory
+//                              histogram of the top 11 bits of the canonical
+//                              key (-0.0 folded onto +0.0, so bins order as
+//                              IEEE `<` does), one atomic an element for any
+//                              number of pivots; an element's side of a pivot
+//                              is decided by its bin unless it shares the
+//                              pivot's bin, and those are compared into exact
+//                              in-bin lt/eq counts kept in registers and
+//                              reduced by warp shuffles;
 //   scan    (threshold_kernel) per (shard, pivot, side) the bin at which the
-//                              count from the pivot side reaches cap; lt and
-//                              gt are the two histograms' sums;
-//   pass 2  (compact_kernel)   one read: every element at or beyond that bin
-//                              is appended to its band's row of a packed
-//                              scratch buffer (rows sized exactly by the
-//                              scan) through block-aggregated cursors;
-//   trim    (trim_kernel)      a histogram of the next key bits of the
-//                              threshold bin finds how much of it each
+//                              count from the pivot outward reaches cap, and
+//                              the counts;
+//   pass 2  (compact_kernel)   one read: every element on a pivot's side (by
+//                              IEEE `<`/`>`) at or beyond that bin is
+//                              appended to its band's row of a packed scratch
+//                              buffer (rows sized exactly by the scan)
+//                              through block-aggregated cursors;
+//   trim    (trim_kernel)      common.cuh: a histogram of the next key bits
+//                              of the threshold bin finds how much of it each
 //                              overfull band keeps, and moves the kept keys
 //                              to the front of the band's row;
 //   sort    (run_sort)         common.cuh: each run of 128 KB of kept keys
@@ -35,8 +42,11 @@
 //                              path, ping-ponging between the scratch rows
 //                              and a second buffer; a band's last pass writes
 //                              its first cap keys as values, sentinel padded.
-// Two full reads of the data.  On heavy ties the threshold bin can hold the
-// whole shard: slower, still exact.  All offsets into the data are 64-bit.
+// Rows and output hold the total-order key (the below side ~key, so that
+// every row ascends from the pivot outward); bins and the trim use the
+// canonical key.  Two full reads of the data.  On heavy ties the threshold
+// bin can hold the whole shard: slower, still exact.  All offsets into the
+// data and the scratch are 64-bit.
 #include "common.cuh"
 
 namespace {
@@ -46,39 +56,52 @@ constexpr int NB = 1 << BIN_BITS;
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;
 
+// The bin of a raw value: the top BIN_BITS bits of its canonical key, so that
+// bins order as IEEE `<` does and +-0.0 share one.
 template <class Tr>
-__device__ __forceinline__ int bin_of(typename Tr::Key k) {
-  return int(k >> (Tr::BITS - BIN_BITS));
+__device__ __forceinline__ int cbin(typename Tr::Raw r) {
+  return int(canon<Tr>(Tr::key(r)) >> (Tr::BITS - BIN_BITS));
+}
+
+template <class Tr>
+__device__ __forceinline__ bool is_nan(typename Tr::Val v) {
+  return Tr::IS_FLOAT && !(v == v);
 }
 
 // ---------------------------------------------------------------------------
-// pass 1: eq counts + per-side key histograms
+// pass 1: one canonical-key histogram per shard, exact counts in pivot bins
 // ---------------------------------------------------------------------------
 
+// An element's side of pivot q follows from its bin unless the two share a
+// bin; only then is it compared, into lt and eq counts that each thread
+// keeps in registers.  NaN lies on no side of any pivot and is not counted.
 template <class Tr, int MAXQ>
 __global__ void __launch_bounds__(THREADS)
 hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total,
             const typename Tr::Raw* __restrict__ pivots, int Q, int64_t chunk,
-            int* __restrict__ g_hist, int* __restrict__ g_eq) {
+            int* __restrict__ g_hist, int* __restrict__ g_pin) {
   using Raw = typename Tr::Raw;
+  using Val = typename Tr::Val;
   using V = Vec<Raw>;
-  extern __shared__ int s_hist[];  // [Q][2][NB]
-  __shared__ int s_eq[MAXQ];
+  __shared__ int s_hist[NB];
+  __shared__ int s_pin[2 * MAXQ];
   const int p = blockIdx.y;
-  for (int i = threadIdx.x; i < Q * 2 * NB; i += THREADS) s_hist[i] = 0;
-  if (threadIdx.x < MAXQ) s_eq[threadIdx.x] = 0;
-  typename Tr::Val pv[MAXQ];
+  for (int i = threadIdx.x; i < NB; i += THREADS) s_hist[i] = 0;
+  if (threadIdx.x < 2 * MAXQ) s_pin[threadIdx.x] = 0;
+  Val pv[MAXQ];
+  int pb[MAXQ], lt[MAXQ], eq[MAXQ];
 #pragma unroll
-  for (int q = 0; q < MAXQ; ++q) pv[q] = Tr::val(pivots[q < Q ? q : 0]);
+  for (int q = 0; q < MAXQ; ++q) {
+    const Raw r = pivots[q < Q ? q : 0];
+    pv[q] = Tr::val(r);
+    pb[q] = q < Q ? cbin<Tr>(r) : -1;            // -1: no element's bin
+    lt[q] = eq[q] = 0;
+  }
   __syncthreads();
 
   const int64_t row = int64_t(p) * n_i;
   const int64_t lo = row + int64_t(blockIdx.x) * chunk;
   const int64_t hi = (row + n_i < lo + chunk) ? row + n_i : lo + chunk;
-  int eq[MAXQ];
-#pragma unroll
-  for (int q = 0; q < MAXQ; ++q) eq[q] = 0;
-
   if (lo < hi) {
     const int64_t v0 = lo / V::N, v1 = (hi + V::N - 1) / V::N;
     for (int64_t base = v0 + threadIdx.x; base < v1; base += int64_t(THREADS) * UNROLL) {
@@ -98,14 +121,16 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
         for (int e = 0; e < V::N; ++e) {
           if (!whole && (g0 + e < lo || g0 + e >= hi)) continue;
           const Raw r = vec[u].r[e];
-          const typename Tr::Val val = Tr::val(r);
-          const int bin = bin_of<Tr>(Tr::key(r));
+          const Val val = Tr::val(r);
+          if (is_nan<Tr>(val)) continue;
+          const int b = cbin<Tr>(r);
+          atomicAdd(&s_hist[b], 1);
 #pragma unroll
           for (int q = 0; q < MAXQ; ++q) {
-            if (q >= Q) break;
-            if (val < pv[q]) atomicAdd(&s_hist[(2 * q) * NB + bin], 1);
-            else if (val > pv[q]) atomicAdd(&s_hist[(2 * q + 1) * NB + bin], 1);
-            else if (val == pv[q]) ++eq[q];
+            if (b == pb[q]) {
+              lt[q] += val < pv[q];
+              eq[q] += val == pv[q];
+            }
           }
         }
       }
@@ -114,38 +139,60 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
 
 #pragma unroll
   for (int q = 0; q < MAXQ; ++q) {
-    int c = eq[q];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-    if ((threadIdx.x & 31) == 0 && c && q < Q) atomicAdd(&s_eq[q], c);
+    for (int off = 16; off > 0; off >>= 1) {
+      lt[q] += __shfl_down_sync(0xFFFFFFFFu, lt[q], off);
+      eq[q] += __shfl_down_sync(0xFFFFFFFFu, eq[q], off);
+    }
+    if ((threadIdx.x & 31) == 0 && q < Q) {
+      if (lt[q]) atomicAdd(&s_pin[2 * q], lt[q]);
+      if (eq[q]) atomicAdd(&s_pin[2 * q + 1], eq[q]);
+    }
   }
   __syncthreads();
-  int* h = g_hist + int64_t(p) * Q * 2 * NB;
-  for (int i = threadIdx.x; i < Q * 2 * NB; i += THREADS) {
+  int* h = g_hist + int64_t(p) * NB;
+  for (int i = threadIdx.x; i < NB; i += THREADS) {
     const int c = s_hist[i];
     if (c) atomicAdd(&h[i], c);
   }
-  if (threadIdx.x < Q && s_eq[threadIdx.x]) atomicAdd(&g_eq[p * Q + threadIdx.x], s_eq[threadIdx.x]);
+  if (threadIdx.x < 2 * Q && s_pin[threadIdx.x])
+    atomicAdd(&g_pin[int64_t(p) * 2 * Q + threadIdx.x], s_pin[threadIdx.x]);
 }
 
 // ---------------------------------------------------------------------------
 // threshold scan: one warp per (shard, pivot, side)
 // ---------------------------------------------------------------------------
 
+// Row r = (p * Q + q) * 2 + side.  Counted outward from the pivot, position 0
+// is the pivot's own bin (its elements on this side), position j the bin j
+// steps away.  A NaN pivot has no element on either side.
+template <class Tr>
 __global__ void __launch_bounds__(32)
-threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_eq,
-                 int Q, int64_t n_i, int cap, int* __restrict__ thr,
-                 int* __restrict__ cand, int* __restrict__ counts) {
+threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_pin,
+                 const typename Tr::Raw* __restrict__ pivots, int Q, int64_t n_i, int cap,
+                 int* __restrict__ thr, int* __restrict__ cand, int* __restrict__ thrcnt,
+                 int* __restrict__ counts) {
   constexpr int PER_LANE = NB / 32;
-  const int seg = blockIdx.x;     // ((p * Q) + q) * 2 + side
-  const int side = seg & 1;       // 0: below the pivot, 1: above
+  const int64_t r = blockIdx.x;
+  const int side = int(r & 1);
+  const int64_t pq = r >> 1;
+  const int64_t p = pq / Q;
   const int lane = threadIdx.x;
-  const int* h = g_hist + int64_t(seg) * NB;
-  // j counts bins outward from the pivot: descending keys below, ascending above
-  auto bin_at = [side](int j) { return side == 0 ? NB - 1 - j : j; };
+  const typename Tr::Raw piv = pivots[pq % Q];
+  const bool none = is_nan<Tr>(Tr::val(piv));
+  const int pb = cbin<Tr>(piv);
+  const int* h = g_hist + p * NB;
+  const int* pin = g_pin + pq * 2;                // in-bin lt, eq
+  const int len = side == 0 ? pb + 1 : NB - pb;
+  auto bin_at = [side, pb](int j) { return side == 0 ? pb - j : pb + j; };
+  auto count_at = [&](int j) {
+    if (none) return 0;
+    if (j) return h[bin_at(j)];
+    return side == 0 ? pin[0] : h[pb] - pin[0] - pin[1];
+  };
 
   int sum = 0;
-  for (int j = lane * PER_LANE; j < (lane + 1) * PER_LANE; ++j) sum += h[bin_at(j)];
+  for (int j = lane * PER_LANE; j < (lane + 1) * PER_LANE && j < len; ++j) sum += count_at(j);
   int incl = sum;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -154,14 +201,14 @@ threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_eq,
   }
   const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
   const unsigned hit = __ballot_sync(0xFFFFFFFFu, incl >= cap);
-  int J = NB - 1, c = total;
+  int J = len - 1, c = total;
   if (hit) {
     const int owner = __ffs(hit) - 1;
     int jj = 0, cc = 0;
     if (lane == owner) {
       int run = incl - sum;
-      for (int j = lane * PER_LANE; j < (lane + 1) * PER_LANE; ++j) {
-        run += h[bin_at(j)];
+      for (int j = lane * PER_LANE; j < (lane + 1) * PER_LANE && j < len; ++j) {
+        run += count_at(j);
         if (run >= cap) { jj = j; cc = run; break; }
       }
     }
@@ -169,14 +216,14 @@ threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_eq,
     c = __shfl_sync(0xFFFFFFFFu, cc, owner);
   }
   if (lane == 0) {
-    thr[seg] = bin_at(J);
-    cand[seg] = c;
+    thr[r] = bin_at(J);
+    cand[r] = c;
+    thrcnt[r] = count_at(J);
     if (side == 0) {
-      const int pq = seg >> 1;
-      const int eq = g_eq[pq];
+      const int e = none ? 0 : pin[1];
       counts[pq * 3 + 0] = total;
-      counts[pq * 3 + 1] = eq;
-      counts[pq * 3 + 2] = int(n_i - total - eq);
+      counts[pq * 3 + 1] = e;
+      counts[pq * 3 + 2] = int(n_i - total - e);
     }
   }
 }
@@ -252,7 +299,7 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
         if (!whole && (g0 + e < lo || g0 + e >= hi)) continue;
         const Raw r = vec[u].r[e];
         const typename Tr::Val val = Tr::val(r);
-        const int bin = bin_of<Tr>(Tr::key(r));
+        const int bin = cbin<Tr>(r);
         unsigned m = 0;
 #pragma unroll
         for (int q = 0; q < MAXQ; ++q) {
@@ -297,93 +344,23 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
 }
 
 // ---------------------------------------------------------------------------
-// trim: a second histogram level cuts each overfull band down to about cap
-// ---------------------------------------------------------------------------
-
-// A row holds cand sort keys (~key below the pivot, key above it: ascending
-// means outward from the pivot).  Keys in bins before the threshold bin are
-// all kept; of the threshold bin only the sub-bins up to the one where the
-// count reaches cap are kept, moved to the front of the row in place; kept
-// is their count.
-template <class Tr>
-__global__ void __launch_bounds__(THREADS)
-trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
-            const int* __restrict__ hist, const int* __restrict__ thr,
-            const int* __restrict__ cand, int cap, int* __restrict__ kept) {
-  using Key = typename Tr::Key;
-  constexpr int SUB_BITS = Tr::BITS - BIN_BITS < BIN_BITS ? Tr::BITS - BIN_BITS : BIN_BITS;
-  constexpr int SUB = 1 << SUB_BITS;
-  constexpr int SUB_SHIFT = Tr::BITS - BIN_BITS - SUB_BITS;
-  __shared__ int s_hist[SUB];
-  __shared__ int s_sub, s_pos;
-  const int seg = blockIdx.x;
-  const int c = cand[seg];
-  if (c <= cap) {                       // nothing beyond cap to drop
-    if (threadIdx.x == 0) kept[seg] = c;
-    return;
-  }
-  const int t = thr[seg];
-  const int b1 = (seg & 1) ? t : NB - 1 - t;          // threshold bin, sort-key space
-  const int need = cap - (c - hist[int64_t(seg) * NB + t]);   // >= 1
-  Key* row = buf + off[seg];
-  for (int i = threadIdx.x; i < SUB; i += THREADS) s_hist[i] = 0;
-  if (threadIdx.x == 0) s_pos = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < c; i += THREADS) {
-    const Key k = row[i];
-    if (int(k >> (Tr::BITS - BIN_BITS)) == b1)
-      atomicAdd(&s_hist[int(k >> SUB_SHIFT) & (SUB - 1)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0, b2 = SUB - 1;
-    for (int i = 0; i < SUB; ++i) {
-      run += s_hist[i];
-      if (run >= need) { b2 = i; break; }
-    }
-    s_sub = b2;
-  }
-  __syncthreads();
-  const int b2 = s_sub;
-  // each round reads its keys before any kept key is written: writes land
-  // below the kept count so far, never on a key still to be read
-  for (int base = 0; base < c; base += THREADS) {
-    const int i = base + threadIdx.x;
-    Key k = 0;
-    bool keep = false;
-    if (i < c) {
-      k = row[i];
-      const int hb = int(k >> (Tr::BITS - BIN_BITS));
-      keep = hb < b1 || (hb == b1 && (int(k >> SUB_SHIFT) & (SUB - 1)) <= b2);
-    }
-    __syncthreads();
-    if (keep) row[atomicAdd(&s_pos, 1)] = k;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) kept[seg] = s_pos;
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
 
 template <class Tr, int MAXQ>
-int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
-               int cap, int bps, int* hist, int* eq, int* thr, int* cand,
-               int* counts, cudaStream_t st) {
+int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q, int cap,
+               int bps, int* hist, int* pin, int* thr, int* cand, int* thrcnt, int* counts,
+               cudaStream_t st) {
   using Raw = typename Tr::Raw;
   const int64_t chunk = (n_i + bps - 1) / bps;
-  const size_t smem = size_t(Q) * 2 * NB * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(hist_kernel<Tr, MAXQ>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  hist_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
+      static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q, chunk,
+      hist, pin);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  hist_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, smem, st>>>(
-      static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q,
-      chunk, hist, eq);
-  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  threshold_kernel<<<unsigned(P * Q * 2), 32, 0, st>>>(hist, eq, Q, n_i, cap, thr, cand,
-                                                       counts);
+  threshold_kernel<Tr><<<unsigned(P * Q * 2), 32, 0, st>>>(
+      hist, pin, static_cast<const Raw*>(pivots), Q, n_i, cap, thr, cand, thrcnt, counts);
   return int(cudaGetLastError());
 }
 
@@ -395,14 +372,6 @@ int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int 
   compact_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
       static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q, chunk,
       thr, off, cursor, static_cast<typename Tr::Key*>(buf));
-  return int(cudaGetLastError());
-}
-
-template <class Tr>
-int trim_impl(void* buf, const int64_t* off, const int* hist, const int* thr, const int* cand,
-              int64_t rows, int cap, int* kept, cudaStream_t st) {
-  trim_kernel<Tr><<<unsigned(rows), THREADS, 0, st>>>(
-      static_cast<typename Tr::Key*>(buf), off, hist, thr, cand, cap, kept);
   return int(cudaGetLastError());
 }
 
@@ -424,14 +393,17 @@ int trim_impl(void* buf, const int64_t* off, const int* hist, const int* thr, co
     default: return kBadArgument;                                             \
   }
 
+// Pass 1 and the scan.  hist: (P, fs_num_bins()) int32 and pin: (P, Q, 2)
+// int32 (in-bin lt, eq), both zeroed by the caller; thr, cand, thrcnt:
+// (P, Q, 2) int32; counts: (P, Q, 3) int32.
 extern "C" int fs_count(int dtype, int maxq, const void* x, long long P, long long n_i,
-                        const void* pivots, int Q, int cap, int bps, int* hist, int* eq,
-                        int* thr, int* cand, int* counts, void* stream) {
+                        const void* pivots, int Q, int cap, int bps, int* hist, int* pin,
+                        int* thr, int* cand, int* thrcnt, int* counts, void* stream) {
   if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
       bps > 65535)
     return kBadArgument;
-  FS_DISPATCH(count_impl, x, P, n_i, pivots, Q, cap, bps, hist, eq, thr, cand, counts,
-              static_cast<cudaStream_t>(stream))
+  FS_DISPATCH(count_impl, x, P, n_i, pivots, Q, cap, bps, hist, pin, thr, cand, thrcnt,
+              counts, static_cast<cudaStream_t>(stream))
 }
 
 // Pass 2.  off: (P*Q*2,) int64 start of each row in buf (rows of cand keys);
@@ -446,17 +418,9 @@ extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long 
               static_cast<cudaStream_t>(stream))
 }
 
-// kept: (rows,) int32.  Moves each trimmed row's kept keys to its front.
-extern "C" int fs_trim(int dtype, void* buf, const long long* off, const int* hist,
-                       const int* thr, const int* cand, long long rows, int cap, int* kept,
-                       void* stream) {
-  if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
-  DTYPE_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), hist, thr, cand, rows,
-                 cap, kept, static_cast<cudaStream_t>(stream))
-}
+// The trim and the band sort: fs_trim, fs_run_sort, fs_merge, fs_expand,
+// fs_run_tile, fs_merge_chunk.
+BAND_SORT_ENTRY_POINTS(fs, BIN_BITS)
 
-// The band sort: fs_run_sort, fs_merge, fs_expand, fs_run_tile, fs_merge_chunk.
-BAND_SORT_ENTRY_POINTS(fs)
-
-// Histogram bins per (shard, pivot, side).
+// Histogram bins per shard.
 extern "C" int fs_num_bins() { return NB; }

@@ -37,8 +37,8 @@
 //                              row of a packed scratch buffer (rows sized
 //                              exactly by the scan) through block-aggregated
 //                              cursors;
-//   trim    (trim_kernel)      a histogram of the next key bits of the
-//                              threshold bin finds how much of it each
+//   trim    (trim_kernel)      common.cuh: a histogram of the next key bits
+//                              of the threshold bin finds how much of it each
 //                              overfull band keeps, and moves the kept keys
 //                              to the front of the band's row;
 //   sort    (run_sort)         common.cuh: each run of 32,768 kept keys
@@ -393,101 +393,6 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ k
 }
 
 // ---------------------------------------------------------------------------
-// trim: how much of the threshold bin each overfull band keeps
-// ---------------------------------------------------------------------------
-
-template <class Tr>
-struct Trim {
-  using Key = typename Tr::Key;
-  static constexpr int SUB_BITS = Tr::BITS - SB_BITS < 11 ? Tr::BITS - SB_BITS : 11;
-  static constexpr int SUB = 1 << SUB_BITS;
-  static constexpr int SUB_SHIFT = Tr::BITS - SB_BITS - SUB_BITS;
-  // a stored key as a canonical key that ascends from the pivot outward
-  __device__ static Key outward(Key s, int side) {
-    const Key ck = canon<Tr>(side == 0 ? Key(~s) : s);
-    return side == 0 ? Key(~ck) : ck;
-  }
-  __device__ static int bin(Key o) { return int(o >> (Tr::BITS - SB_BITS)); }
-  __device__ static int sub(Key o) { return int(o >> SUB_SHIFT) & (SUB - 1); }
-};
-
-// kept[r]: the keys row r keeps.  A row of more than cap candidates keeps
-// those in bins nearer the pivot and, of its threshold bin, the sub-bins up
-// to the first at which the count reaches cap; its kept keys are then moved
-// to the front of its row, in place.  The kept keys are the row's smallest,
-// since the outward key ascends with the stored key.
-template <class Tr>
-__global__ void __launch_bounds__(THREADS)
-trim_kernel(typename Tr::Key* __restrict__ buf, const int64_t* __restrict__ off,
-            const int* __restrict__ cand, const int* __restrict__ thr,
-            const int* __restrict__ thrcnt, int cap, int* __restrict__ kept) {
-  using T = Trim<Tr>;
-  using Key = typename Tr::Key;
-  constexpr int PER = 8;                          // keys a thread holds per round
-  __shared__ int s_hist[T::SUB];
-  __shared__ int s_b2, s_cur;
-  const int64_t r = blockIdx.x;
-  const int c = cand[r];
-  if (c <= cap) {
-    if (threadIdx.x == 0) kept[r] = c;
-    return;
-  }
-  const int side = int(r & 1);
-  const int b1 = side == 0 ? NBS - 1 - thr[r] : thr[r];
-  const int before = c - thrcnt[r];                 // keys in bins nearer the pivot
-  const int need = cap - before;                    // >= 1
-  for (int i = threadIdx.x; i < T::SUB; i += THREADS) s_hist[i] = 0;
-  __syncthreads();
-  Key* row = buf + off[r];
-  for (int i = threadIdx.x; i < c; i += THREADS) {
-    const Key o = T::outward(row[i], side);
-    if (T::bin(o) == b1) atomicAdd(&s_hist[T::sub(o)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0, b2 = T::SUB - 1;
-    for (int i = 0; i < T::SUB; ++i) {
-      run += s_hist[i];
-      if (run >= need) { b2 = i; break; }
-    }
-    kept[r] = before + run;
-    s_b2 = before + run < c ? b2 : -1;
-    s_cur = 0;
-  }
-  __syncthreads();
-  const int b2 = s_b2;
-  if (b2 < 0) return;
-  // every key of a round is read before any is written, and the writes end
-  // at or before the round's last key
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < c; base += THREADS * PER) {
-    Key v[PER];
-    bool keep[PER];
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const int i = base + q * THREADS + threadIdx.x;
-      keep[q] = false;
-      if (i < c) {
-        v[q] = row[i];
-        const Key o = T::outward(v[q], side);
-        const int hb = T::bin(o);
-        keep[q] = hb < b1 || (hb == b1 && T::sub(o) <= b2);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, keep[q]);
-      int at = 0;
-      if (lane == 0 && m) at = atomicAdd(&s_cur, __popc(m));
-      at = __shfl_sync(0xFFFFFFFFu, at, 0);
-      if (keep[q]) row[at + __popc(m & ((1u << lane) - 1))] = v[q];
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -532,14 +437,6 @@ int compact_impl(const void* x, const int* keys, int64_t P, int64_t n_i, const v
   compact_kernel<Tr><<<dim3(bps, unsigned(P)), THREADS, smem, st>>>(
       static_cast<const Raw*>(x), keys, n_i, P * n_i, static_cast<const Raw*>(pivots), G, Q,
       chunk, thr, off, cursor, static_cast<typename Tr::Key*>(buf));
-  return int(cudaGetLastError());
-}
-
-template <class Tr>
-int trim_impl(void* buf, const int64_t* off, const int* cand, const int* thr,
-              const int* thrcnt, int64_t rows, int cap, int* kept, cudaStream_t st) {
-  trim_kernel<Tr><<<unsigned(rows), THREADS, 0, st>>>(
-      static_cast<typename Tr::Key*>(buf), off, cand, thr, thrcnt, cap, kept);
   return int(cudaGetLastError());
 }
 
@@ -590,17 +487,9 @@ extern "C" int ss_compact(int dtype, const void* x, const int* keys, long long P
                  static_cast<cudaStream_t>(stream))
 }
 
-// kept: (rows,) int32.  Moves each trimmed row's kept keys to its front.
-extern "C" int ss_trim(int dtype, void* buf, const long long* off, const int* cand,
-                       const int* thr, const int* thrcnt, long long rows, int cap, int* kept,
-                       void* stream) {
-  if (rows < 1 || rows > 0x7FFFFFFFLL || cap < 1) return kBadArgument;
-  DTYPE_DISPATCH(trim_impl, buf, reinterpret_cast<const int64_t*>(off), cand, thr, thrcnt, rows,
-                 cap, kept, static_cast<cudaStream_t>(stream))
-}
-
-// The band sort: ss_run_sort, ss_merge, ss_expand, ss_run_tile, ss_merge_chunk.
-BAND_SORT_ENTRY_POINTS(ss)
+// The trim and the band sort: ss_trim, ss_run_sort, ss_merge, ss_expand,
+// ss_run_tile, ss_merge_chunk.
+BAND_SORT_ENTRY_POINTS(ss, SB_BITS)
 
 extern "C" int ss_num_bins() { return NBS; }
 extern "C" int ss_max_pivots() { return MAX_PIVOTS; }

@@ -35,11 +35,9 @@ MULTI_MAX_PIVOTS = 8            # pivots one fused_select_multi launch takes
 PASSES_PER_LAUNCH = 2           # full reads of the data per launch
 _SIGNATURES = {
     "fs_count": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
-                  cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
+                  cb.P, cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
     "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.P, cb.P,
                     cb.P, cb.P, cb.P], cb.I),
-    "fs_trim": ([cb.I, cb.P, cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P, cb.P],
-                cb.I),
     "fs_num_bins": ([], cb.I),
     **band_sort.signatures("fs"),
 }
@@ -97,17 +95,19 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
     with torch.cuda.device(dev):
         st = cb.stream(dev)
         bps = cb.shard_blocks(dev, P, n_i)
-        hist = torch.zeros((P, Q, 2, lib.fs_num_bins()), **i32)
-        eq = torch.zeros((P, Q), **i32)
+        hist = torch.zeros((P, lib.fs_num_bins()), **i32)
+        pin = torch.zeros((P, Q, 2), **i32)
         thr = torch.empty((P, Q, 2), **i32)
         cand = torch.empty((P, Q, 2), **i32)
+        thrcnt = torch.empty((P, Q, 2), **i32)
         counts = torch.empty((P, Q, 3), **i32)
         code = cb.DTYPE_CODE[x.dtype]
         cb.check(lib.fs_count(code, maxq, x.data_ptr(), P, n_i,
                               pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
-                              eq.data_ptr(), thr.data_ptr(), cand.data_ptr(),
-                              counts.data_ptr(), st),
+                              pin.data_ptr(), thr.data_ptr(), cand.data_ptr(),
+                              thrcnt.data_ptr(), counts.data_ptr(), st),
                  "fused_select count pass")
+        del hist, pin
         # each band's scratch row is exactly as wide as its candidates: the
         # first host sync of the launch
         cand_h = cand.reshape(-1).cpu().numpy()
@@ -120,16 +120,11 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
                                 off.data_ptr(), cursor.data_ptr(),
                                 buf.data_ptr(), st),
                  "fused_select compaction pass")
-        kept = torch.empty(rows, **i32)
-        cb.check(lib.fs_trim(code, buf.data_ptr(), off.data_ptr(),
-                             hist.data_ptr(), thr.data_ptr(), cand.data_ptr(),
-                             rows, cap, kept.data_ptr(), st),
-                 "fused_select trim")
         below = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, Q, cap), dtype=x.dtype, device=dev)
         # the kept keys set the sort's runs and passes: the second host sync
-        band_sort.sort_bands(lib, "fs", code, buf, off, kept, cap, below,
-                             above, st, "fused_select")
+        band_sort.trim_sort_bands(lib, "fs", code, buf, off, cand, thr, thrcnt,
+                                  cap, below, above, st, "fused_select")
     return counts, below, above
 
 

@@ -30,8 +30,6 @@ _SIGNATURES = {
                       cb.P, cb.P, cb.P, cb.P], cb.I),
     "ss_compact": ([cb.I, cb.P, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
                     cb.P, cb.P, cb.P, cb.P], cb.I),
-    "ss_trim": ([cb.I, cb.P, cb.P, cb.P, cb.P, cb.P, cb.L, cb.I, cb.P, cb.P],
-                cb.I),
     "ss_num_bins": ([], cb.I),
     "ss_max_pivots": ([], cb.I),
     **band_sort.signatures("ss"),
@@ -126,15 +124,11 @@ def segmented_select(values: torch.Tensor, keys: torch.Tensor,
                                 off.data_ptr(), cursor.data_ptr(),
                                 buf.data_ptr(), st),
                  "segmented_select compaction pass")
-        kept = torch.empty(rows, **i32)
-        cb.check(lib.ss_trim(code, buf.data_ptr(), off.data_ptr(),
-                             cand.data_ptr(), thr.data_ptr(),
-                             thrcnt.data_ptr(), rows, cap, kept.data_ptr(),
-                             st), "segmented_select trim")
         below = torch.empty((P, G, Q, cap), dtype=x.dtype, device=dev)
         above = torch.empty((P, G, Q, cap), dtype=x.dtype, device=dev)
         # the kept keys set the sort's runs and passes: the second host sync
-        band_sort.sort_bands(lib, "ss", code, buf, off, kept, cap, below,
-                             above, st, "segmented_select")
+        band_sort.trim_sort_bands(lib, "ss", code, buf, off, cand, thr,
+                                  thrcnt, cap, below, above, st,
+                                  "segmented_select")
     LAUNCHES["segmented_select"] += 1
     return counts, below, above
