@@ -73,8 +73,10 @@ __device__ __forceinline__ bool is_nan(typename Tr::Val v) {
 // ---------------------------------------------------------------------------
 
 // An element's side of pivot q follows from its bin unless the two share a
-// bin; only then is it compared, into lt and eq counts that each thread
-// keeps in registers.  NaN lies on no side of any pivot and is not counted.
+// bin.  A byte per bin marks the pivots it holds; only an element in such a
+// bin is compared, into lt and eq counts of its own thread in shared memory
+// (no atomics: a thread's counts are its own slots).  NaN lies on no side of
+// any pivot and is not counted.
 template <class Tr, int MAXQ>
 __global__ void __launch_bounds__(THREADS)
 hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total,
@@ -84,18 +86,22 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
   using Val = typename Tr::Val;
   using V = Vec<Raw>;
   __shared__ int s_hist[NB];
-  __shared__ int s_pin[2 * MAXQ];
+  __shared__ int s_in[2 * MAXQ][THREADS];        // each thread's in-bin lt, eq per pivot
+  __shared__ Val s_pv[MAXQ];
+  __shared__ unsigned char s_pmask[NB];          // bit q: pivot q's bin
   const int p = blockIdx.y;
-  for (int i = threadIdx.x; i < NB; i += THREADS) s_hist[i] = 0;
-  if (threadIdx.x < 2 * MAXQ) s_pin[threadIdx.x] = 0;
-  Val pv[MAXQ];
-  int pb[MAXQ], lt[MAXQ], eq[MAXQ];
+  for (int i = threadIdx.x; i < NB; i += THREADS) {
+    s_hist[i] = 0;
+    s_pmask[i] = 0;
+  }
 #pragma unroll
-  for (int q = 0; q < MAXQ; ++q) {
-    const Raw r = pivots[q < Q ? q : 0];
-    pv[q] = Tr::val(r);
-    pb[q] = q < Q ? cbin<Tr>(r) : -1;            // -1: no element's bin
-    lt[q] = eq[q] = 0;
+  for (int q = 0; q < 2 * MAXQ; ++q) s_in[q][threadIdx.x] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < Q; ++q) {
+      s_pv[q] = Tr::val(pivots[q]);
+      s_pmask[cbin<Tr>(pivots[q])] |= 1u << q;
+    }
   }
   __syncthreads();
 
@@ -125,38 +131,32 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_total
           if (is_nan<Tr>(val)) continue;
           const int b = cbin<Tr>(r);
           atomicAdd(&s_hist[b], 1);
-#pragma unroll
-          for (int q = 0; q < MAXQ; ++q) {
-            if (b == pb[q]) {
-              lt[q] += val < pv[q];
-              eq[q] += val == pv[q];
-            }
+          for (unsigned m = s_pmask[b]; m; m &= m - 1) {
+            const int q = __ffs(m) - 1;
+            const Val pq = s_pv[q];
+            s_in[2 * q][threadIdx.x] += val < pq;
+            s_in[2 * q + 1][threadIdx.x] += val == pq;
           }
         }
       }
     }
   }
-
-#pragma unroll
-  for (int q = 0; q < MAXQ; ++q) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lt[q] += __shfl_down_sync(0xFFFFFFFFu, lt[q], off);
-      eq[q] += __shfl_down_sync(0xFFFFFFFFu, eq[q], off);
-    }
-    if ((threadIdx.x & 31) == 0 && q < Q) {
-      if (lt[q]) atomicAdd(&s_pin[2 * q], lt[q]);
-      if (eq[q]) atomicAdd(&s_pin[2 * q + 1], eq[q]);
-    }
-  }
   __syncthreads();
+
+  // warp w sums rows w, w + 8, ... of the per-thread counts
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < 2 * Q; i += THREADS / 32) {
+    int c = 0;
+    for (int t = lane; t < THREADS; t += 32) c += s_in[i][t];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
+    if (lane == 0 && c) atomicAdd(&g_pin[int64_t(p) * 2 * Q + i], c);
+  }
   int* h = g_hist + int64_t(p) * NB;
   for (int i = threadIdx.x; i < NB; i += THREADS) {
     const int c = s_hist[i];
     if (c) atomicAdd(&h[i], c);
   }
-  if (threadIdx.x < 2 * Q && s_pin[threadIdx.x])
-    atomicAdd(&g_pin[int64_t(p) * 2 * Q + threadIdx.x], s_pin[threadIdx.x]);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,11 +348,34 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
 // ---------------------------------------------------------------------------
 
 
+// Blocks per shard for a pass over the data: as many as the card holds at
+// once (one wave, by the kernel's occupancy), spread over the P shards, none
+// with fewer than 16,384 elements.  A second, partial wave would about
+// double the pass.
+// Each kernel's occupancy is asked once.
+template <auto kernel>
+int wave_blocks(int64_t P, int64_t n_i) {
+  static int per_card = 0;
+  if (!per_card) {
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+    per_card = per_sm * sms;
+  }
+  int64_t b = per_card / P;
+  const int64_t most = (n_i + 16383) / 16384;
+  if (b > most) b = most;
+  if (b > 65535) b = 65535;
+  return int(b < 1 ? 1 : b);
+}
+
 template <class Tr, int MAXQ>
 int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q, int cap,
-               int bps, int* hist, int* pin, int* thr, int* cand, int* thrcnt, int* counts,
+               int* hist, int* pin, int* thr, int* cand, int* thrcnt, int* counts,
                cudaStream_t st) {
   using Raw = typename Tr::Raw;
+  const int bps = wave_blocks<hist_kernel<Tr, MAXQ>>(P, n_i);
   const int64_t chunk = (n_i + bps - 1) / bps;
   hist_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
       static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q, chunk,
@@ -365,9 +388,10 @@ int count_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
 }
 
 template <class Tr, int MAXQ>
-int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q, int bps,
+int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int Q,
                  const int* thr, const int64_t* off, int* cursor, void* buf, cudaStream_t st) {
   using Raw = typename Tr::Raw;
+  const int bps = wave_blocks<compact_kernel<Tr, MAXQ>>(P, n_i);
   const int64_t chunk = (n_i + bps - 1) / bps;
   compact_kernel<Tr, MAXQ><<<dim3(bps, unsigned(P)), THREADS, 0, st>>>(
       static_cast<const Raw*>(x), n_i, P * n_i, static_cast<const Raw*>(pivots), Q, chunk,
@@ -397,23 +421,20 @@ int compact_impl(const void* x, int64_t P, int64_t n_i, const void* pivots, int 
 // int32 (in-bin lt, eq), both zeroed by the caller; thr, cand, thrcnt:
 // (P, Q, 2) int32; counts: (P, Q, 3) int32.
 extern "C" int fs_count(int dtype, int maxq, const void* x, long long P, long long n_i,
-                        const void* pivots, int Q, int cap, int bps, int* hist, int* pin,
-                        int* thr, int* cand, int* thrcnt, int* counts, void* stream) {
-  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1 || bps < 1 ||
-      bps > 65535)
-    return kBadArgument;
-  FS_DISPATCH(count_impl, x, P, n_i, pivots, Q, cap, bps, hist, pin, thr, cand, thrcnt,
-              counts, static_cast<cudaStream_t>(stream))
+                        const void* pivots, int Q, int cap, int* hist, int* pin, int* thr,
+                        int* cand, int* thrcnt, int* counts, void* stream) {
+  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || cap < 1) return kBadArgument;
+  FS_DISPATCH(count_impl, x, P, n_i, pivots, Q, cap, hist, pin, thr, cand, thrcnt, counts,
+              static_cast<cudaStream_t>(stream))
 }
 
 // Pass 2.  off: (P*Q*2,) int64 start of each row in buf (rows of cand keys);
 // cursor: same shape, int32, zeroed by the caller.
 extern "C" int fs_compact(int dtype, int maxq, const void* x, long long P, long long n_i,
-                          const void* pivots, int Q, int bps, const int* thr,
-                          const long long* off, int* cursor, void* buf, void* stream) {
-  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1 || bps < 1 || bps > 65535)
-    return kBadArgument;
-  FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, bps, thr,
+                          const void* pivots, int Q, const int* thr, const long long* off,
+                          int* cursor, void* buf, void* stream) {
+  if (Q < 1 || Q > maxq || P < 1 || P > 65535 || n_i < 1) return kBadArgument;
+  FS_DISPATCH(compact_impl, x, P, n_i, pivots, Q, thr,
               reinterpret_cast<const int64_t*>(off), cursor, buf,
               static_cast<cudaStream_t>(stream))
 }

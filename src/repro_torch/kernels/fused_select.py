@@ -34,10 +34,10 @@ from . import band_sort, cuda_build as cb
 MULTI_MAX_PIVOTS = 8            # pivots one fused_select_multi launch takes
 PASSES_PER_LAUNCH = 2           # full reads of the data per launch
 _SIGNATURES = {
-    "fs_count": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.I, cb.P,
-                  cb.P, cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
-    "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.P, cb.P,
-                    cb.P, cb.P, cb.P], cb.I),
+    "fs_count": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.I, cb.P, cb.P,
+                  cb.P, cb.P, cb.P, cb.P, cb.P], cb.I),
+    "fs_compact": ([cb.I, cb.I, cb.P, cb.L, cb.L, cb.P, cb.I, cb.P, cb.P, cb.P,
+                    cb.P, cb.P], cb.I),
     "fs_num_bins": ([], cb.I),
     **band_sort.signatures("fs"),
 }
@@ -94,7 +94,6 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
     i32 = dict(dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         st = cb.stream(dev)
-        bps = cb.shard_blocks(dev, P, n_i)
         hist = torch.zeros((P, lib.fs_num_bins()), **i32)
         pin = torch.zeros((P, Q, 2), **i32)
         thr = torch.empty((P, Q, 2), **i32)
@@ -103,7 +102,7 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
         counts = torch.empty((P, Q, 3), **i32)
         code = cb.DTYPE_CODE[x.dtype]
         cb.check(lib.fs_count(code, maxq, x.data_ptr(), P, n_i,
-                              pivots.data_ptr(), Q, cap, bps, hist.data_ptr(),
+                              pivots.data_ptr(), Q, cap, hist.data_ptr(),
                               pin.data_ptr(), thr.data_ptr(), cand.data_ptr(),
                               thrcnt.data_ptr(), counts.data_ptr(), st),
                  "fused_select count pass")
@@ -116,7 +115,7 @@ def _launch(x: torch.Tensor, pivots: torch.Tensor, cap: int, maxq: int):
                           dtype=cb.KEY_DTYPE[x.dtype], device=dev)
         cursor = torch.zeros(rows, **i32)
         cb.check(lib.fs_compact(code, maxq, x.data_ptr(), P, n_i,
-                                pivots.data_ptr(), Q, bps, thr.data_ptr(),
+                                pivots.data_ptr(), Q, thr.data_ptr(),
                                 off.data_ptr(), cursor.data_ptr(),
                                 buf.data_ptr(), st),
                  "fused_select compaction pass")
