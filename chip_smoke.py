@@ -13,16 +13,15 @@
    mixed -0.0/+0.0, the dtype's sentinels in the data, n not a multiple of
    the vector width, cap = n_i, duplicate pivots, more pivots than one
    launch takes; for both fused kernels also bands wider than one run of
-   the band sort at 2^20 values a shard (1 to 10 runs, trimmed and whole,
+   the band sort at 2^20 values a shard: 1 to 10 runs, trimmed and whole,
    ties and mixed -0.0/+0.0 across run boundaries, pivots +-0.0 beside
-   subnormal neighbours in their canonical bin); for segmented_select also
-   empty groups, keys -1 and G, one
-   group holding all the data, G*Q = 1, G*Q too large for one block's
-   shared memory, and bands wider than one run of the band sort: kept
-   counts 1, T - 1, T, T + 1, 2T + 3, 3T + 5 and at least 2^17 (T the run
-   tile), a band the trim cuts, ties and mixed -0.0/+0.0 across run
-   boundaries, rows of an odd number of runs; for the radix walks a k
-   outside [1, n]).
+   subnormal neighbours in their canonical bin; for segmented_select also
+   empty groups, keys -1 and G, one group holding all the data, G*Q = 1,
+   G*Q too large for one block's shared memory, and bands wider than one
+   run of the band sort: kept counts 1, T - 1, T, T + 1, 2T + 3, 3T + 5
+   and at least 2^17 (T the run tile), a band the trim cuts, ties and mixed
+   -0.0/+0.0 across run boundaries, rows of an odd number of runs; for the
+   radix walks a k outside [1, n]).
 3. Checks that the card's sorts, argmins and answers equal the CPU port's
    on signed zeros and ties, bit for bit.
 4. Drives the main path at the paper's size: n = 120 x 2^23 = 1,006,632,960

@@ -5,6 +5,7 @@ fused_select      ``fused_select``, ``fused_select_multi`` and
 partition_count   ``partition_count`` (with the 32-pass bitwise search)
 band_count        ``band_count``
 segmented_select  ``segmented_select``, the grouped engine's round
+band_sort         the band kernels' trim and sort: host plan and launches
 cuda_build        nvcc build of ``csrc/*.cu`` and the ctypes binding
 ref               plain PyTorch versions: the kernels' contract and CPU path
 dispatch          device -> implementation (CPU: plain, CUDA: kernel or raise)

@@ -17,9 +17,11 @@
 //                            pairwise by merge path, the last pass handing
 //                            each row to the caller's output policy;
 //                            expand_blocks writes their block tables
-//   BandRows, band_run_sort, the band kernels' sort of their packed rows of
-//   band_merge               candidates, written out as values;
-//                            BAND_SORT_ENTRY_POINTS declares its C interface
+//   trim_kernel              the band kernels' trim: each overfull row of
+//                            candidates cut to about cap kept keys, in place
+//   BandRows, band_run_sort, the band kernels' sort of their packed rows,
+//   band_merge               written out as values; BAND_SORT_ENTRY_POINTS
+//                            declares the trim's and the sort's C interface
 //                            under a library's prefix
 // All offsets into the data are 64-bit.
 #pragma once

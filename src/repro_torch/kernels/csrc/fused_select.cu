@@ -20,9 +20,9 @@
 //                              IEEE `<` does), one atomic an element for any
 //                              number of pivots; an element's side of a pivot
 //                              is decided by its bin unless it shares the
-//                              pivot's bin, and those are compared into exact
-//                              in-bin lt/eq counts kept in registers and
-//                              reduced by warp shuffles;
+//                              pivot's bin, and only those are compared, into
+//                              exact in-bin lt/eq counts in each thread's own
+//                              shared-memory slots;
 //   scan    (threshold_kernel) per (shard, pivot, side) the bin at which the
 //                              count from the pivot outward reaches cap, and
 //                              the counts;
@@ -46,7 +46,8 @@
 // every row ascends from the pivot outward); bins and the trim use the
 // canonical key.  Two full reads of the data.  On heavy ties the threshold
 // bin can hold the whole shard: slower, still exact.  All offsets into the
-// data and the scratch are 64-bit.
+// data and the scratch are 64-bit.  Each pass over the data launches one
+// wave: as many blocks as the card holds at once.
 #include "common.cuh"
 
 namespace {
@@ -347,12 +348,10 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, int64_t n_i, int64_t n_to
 // host side
 // ---------------------------------------------------------------------------
 
-
 // Blocks per shard for a pass over the data: as many as the card holds at
-// once (one wave, by the kernel's occupancy), spread over the P shards, none
-// with fewer than 16,384 elements.  A second, partial wave would about
-// double the pass.
-// Each kernel's occupancy is asked once.
+// once (one wave, by the kernel's occupancy, asked once per kernel), spread
+// over the P shards, none with fewer than 16,384 elements.  A second,
+// partial wave would about double the pass.
 template <auto kernel>
 int wave_blocks(int64_t P, int64_t n_i) {
   static int per_card = 0;

@@ -128,8 +128,8 @@ def stream_blocks(device, n_vectors: int, threads: int = 256,
 
 
 def shard_blocks(device, shards: int, n_i: int) -> int:
-    """Blocks per shard for the band kernels' (blocks, shards) grids: about
-    four per SM in all, none with fewer than 16384 elements."""
+    """Blocks per shard for ``segmented_select``'s (blocks, shards) grids:
+    about four per SM in all, none with fewer than 16384 elements."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-4 * sms // shards), -(-n_i // 16384), 65535))
 

@@ -14,11 +14,12 @@
                         four launches into the exact k-th smallest key with
                         no host sync.
 
-The first two are one CUDA C++ source, ``csrc/fused_select.cu``; the third
-is ``csrc/byte_histogram.cu``.  ``cuda_build`` compiles them for ``sm_90a``
-at first use and binds them with ctypes.  Each source's header says what
-bounds its kernels and how the design answers it.  Plain versions:
-``kernels/ref.py``.
+The first two are one CUDA C++ source, ``csrc/fused_select.cu``, with the
+trim, run sort and merge passes of ``csrc/common.cuh`` that ``band_sort``
+plans and launches; the third is ``csrc/byte_histogram.cu``.
+``cuda_build`` compiles them for ``sm_90a`` at first use and binds them
+with ctypes.  Each source's header says what bounds its kernels and how the
+design answers it.  Plain versions: ``kernels/ref.py``.
 
 A wrapper takes CUDA tensors only and raises otherwise; choosing the plain
 version for a CPU tensor is ``kernels/dispatch.py``'s job.  Every launch adds
