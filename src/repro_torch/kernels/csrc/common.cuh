@@ -5,6 +5,7 @@
 //                            the value IEEE comparisons run on
 //   canon                    the key with -0.0 folded onto +0.0: its order is
 //                            the order of IEEE `<` (for data without NaN)
+//   is_nan                   a value that the band kernels skip
 //   sortable_u32             JAX's to_sortable_u32, bf16 through f32
 //   Vec                      one 16-byte vector of a flat array, element loads
 //                            at the ragged end
@@ -97,6 +98,12 @@ __device__ __forceinline__ typename Tr::Key canon(typename Tr::Key k) {
   using Key = typename Tr::Key;
   constexpr Key top = Key(Key(1) << (Tr::BITS - 1));
   return (Tr::IS_FLOAT && k == Key(top - 1)) ? top : k;
+}
+
+// A NaN value lies on no side of any pivot: the band kernels skip it.
+template <class Tr>
+__device__ __forceinline__ bool is_nan(typename Tr::Val v) {
+  return Tr::IS_FLOAT && !(v == v);
 }
 
 // uint32 input: the sortable domain itself.

@@ -64,11 +64,6 @@ __device__ __forceinline__ int cbin(typename Tr::Raw r) {
   return int(canon<Tr>(Tr::key(r)) >> (Tr::BITS - BIN_BITS));
 }
 
-template <class Tr>
-__device__ __forceinline__ bool is_nan(typename Tr::Val v) {
-  return Tr::IS_FLOAT && !(v == v);
-}
-
 // ---------------------------------------------------------------------------
 // pass 1: one canonical-key histogram per shard, exact counts in pivot bins
 // ---------------------------------------------------------------------------

@@ -51,8 +51,10 @@
 //                              its first cap keys as values, sentinel padded.
 // A band of k kept keys is read and written about 2 + log2(k / 32,768) times
 // after the compaction.  Heavy ties or one group holding the data make bands
-// wider: slower, still exact.  All offsets into the data and the scratch are
-// 64-bit.
+// wider: slower, still exact.  A NaN value is on no side of any pivot and
+// joins no band, and a NaN pivot has zero counts and sentinel bands, as the
+// plain version's IEEE comparisons give: one compare an element in each
+// pass.  All offsets into the data and the scratch are 64-bit.
 #include "common.cuh"
 
 namespace {
@@ -152,7 +154,7 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ keys
   for (int i = threadIdx.x; i < gs * Q; i += HIST_THREADS) {
     const Raw r = pivots[int64_t(g0) * Q + i];
     s_piv[i] = r;
-    s_pbin[i] = pivot_bin<Tr>(r);
+    s_pbin[i] = is_nan<Tr>(Tr::val(r)) ? -1 : pivot_bin<Tr>(r);
   }
   __syncthreads();
 
@@ -184,6 +186,7 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ keys
           const unsigned g = unsigned(kv[u].k[e]) - unsigned(g0);
           if (g >= unsigned(gs)) continue;
           const Raw r = vec[u].r[e];
+          if (is_nan<Tr>(Tr::val(r))) continue;
           const int b = sbin<Tr>(canon<Tr>(Tr::key(r)));
           atomicAdd(&s_hist[int(g) * NBS + b], 1);
           for (int q = 0; q < Q; ++q) {
@@ -215,7 +218,7 @@ hist_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ keys
 
 // Row r = ((p * G + g) * Q + q) * 2 + side.  Counted outward from the pivot,
 // position 0 is the pivot's own bin (its elements on this side), position j
-// the bin j steps away.
+// the bin j steps away.  A NaN pivot has no element on any side.
 template <class Tr>
 __global__ void __launch_bounds__(32)
 threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_pin,
@@ -230,12 +233,17 @@ threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_pin,
   const int64_t pg = pgq / Q;
   const int g = int(pg % G);
   const int lane = threadIdx.x;
-  const int pb = pivot_bin<Tr>(pivots[g * Q + q]);
+  const typename Tr::Raw piv = pivots[g * Q + q];
+  const bool none = is_nan<Tr>(Tr::val(piv));
+  const int pb = pivot_bin<Tr>(piv);
   const int* h = g_hist + pg * NBS;
   const int* pin = g_pin + pgq * 3;
   const int len = side == 0 ? pb + 1 : NBS - pb;
   auto bin_at = [side, pb](int j) { return side == 0 ? pb - j : pb + j; };
-  auto count_at = [&](int j) { return j == 0 ? pin[side == 0 ? 0 : 2] : h[bin_at(j)]; };
+  auto count_at = [&](int j) {
+    if (none) return 0;
+    return j == 0 ? pin[side == 0 ? 0 : 2] : h[bin_at(j)];
+  };
 
   int sum = 0;
   for (int j = lane * PER_LANE; j < (lane + 1) * PER_LANE && j < len; ++j) sum += count_at(j);
@@ -267,7 +275,7 @@ threshold_kernel(const int* __restrict__ g_hist, const int* __restrict__ g_pin,
     thrcnt[r] = count_at(J);
     if (side == 0) {
       counts[pgq * 3 + 0] = total;
-      counts[pgq * 3 + 1] = pin[1];
+      counts[pgq * 3 + 1] = none ? 0 : pin[1];
     } else {
       counts[pgq * 3 + 2] = total;
     }
@@ -302,8 +310,10 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ k
     s_piv[i] = pivots[i];
     s_pbin[i] = pivot_bin<Tr>(pivots[i]);
   }
+  // a NaN pivot's thresholds lie beyond every bin: its bands stay empty
   for (int i = threadIdx.x; i < 2 * GQ; i += THREADS) {
-    s_thr[i] = thr[int64_t(p) * 2 * GQ + i];
+    const bool none = is_nan<Tr>(Tr::val(pivots[i >> 1]));
+    s_thr[i] = none ? ((i & 1) ? -1 : NBS) : thr[int64_t(p) * 2 * GQ + i];
     s_cnt[i] = 0;
   }
   __syncthreads();
@@ -349,6 +359,7 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ k
         const int g = kv[u].k[e];
         if (unsigned(g) >= unsigned(G)) continue;
         const Raw r = vec[u].r[e];
+        if (is_nan<Tr>(Tr::val(r))) continue;
         const int b = sbin<Tr>(canon<Tr>(Tr::key(r)));
         for (int q = 0; q < Q; ++q) {
           const int c = band(r, g, b, q);
@@ -379,6 +390,7 @@ compact_kernel(const typename Tr::Raw* __restrict__ x, const int* __restrict__ k
         const int g = kv[u].k[e];
         if (unsigned(g) >= unsigned(G)) continue;
         const Raw r = vec[u].r[e];
+        if (is_nan<Tr>(Tr::val(r))) continue;
         const Key k = Tr::key(r);
         const int b = sbin<Tr>(canon<Tr>(k));
         for (int q = 0; q < Q; ++q) {

@@ -212,6 +212,51 @@ def test_segmented_kernel_sorts_wide_bands_on_card(cuda, dtype):
             assert _bits(g) == _bits(w), (dtype, cap)
 
 
+_NAN_BITS = {torch.float32: (0x7FC00000, -0x00400000),
+             torch.bfloat16: (0x7FC0, -0x40),
+             torch.float64: (0x7FF8000000000000, -0x0008000000000000)}
+
+
+def _nans(dtype, device):
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[dtype.itemsize]
+    return torch.tensor(_NAN_BITS[dtype], dtype=view).view(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float64))
+def test_band_kernels_skip_nan_on_card(cuda, dtype):
+    """Quiet NaNs of both signs among +-inf and both zeros, and NaN pivots:
+    the fused kernels count a NaN in gt (n - lt - eq) and the segmented one
+    on no side; none puts a NaN in a band, and a NaN pivot has no band.  At
+    cap = N the above bands reach the top bin, where +NaN's key lies."""
+    x = _data(dtype, cuda)
+    pos, neg = _nans(dtype, cuda)
+    flat = x.view(-1)
+    flat[::5] = pos
+    flat[2::9] = neg
+    pv = torch.cat([_pivots(x[~torch.isnan(x)].reshape(1, -1)),
+                    _nans(dtype, cuda)])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    keys = torch.randint(-1, 4, x.shape, generator=gen, device=cuda,
+                         dtype=torch.int32)
+    grid = pv[torch.arange(3 * 4, device=cuda) % pv.numel()].reshape(3, 4)
+    for cap in (37, N):
+        for i in range(pv.numel()):
+            got = fs.fused_select(x, pv[i], cap)
+            want = ref.fused_select_ref(x, pv[i], cap)
+            for g, w in zip(got, want):
+                assert _bits(g) == _bits(w), (dtype, cap, i)
+        got = fs.fused_select_multi(x, pv, cap)
+        want = ref.fused_select_multi_ref(x, pv, cap)
+        for g, w in zip(got, want):
+            assert _bits(g) == _bits(w), (dtype, cap)
+        got = ss.segmented_select(x, keys, grid, cap)
+        want = ref.segmented_select_ref(x, keys, grid, cap)
+        for g, w in zip(got, want):
+            assert _bits(g) == _bits(w), (dtype, cap)
+
+
 @pytest.mark.cuda
 def test_new_kernel_routes_count_their_reads(cuda):
     x = torch.randn(4, 5000, device=cuda)

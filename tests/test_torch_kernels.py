@@ -322,6 +322,42 @@ def test_segmented_count_extract_matches_jax(dtype):
                 assert tbits(g) == jbits(w), (dtype, cap)
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float64"))
+def test_plain_band_versions_match_jax_on_nan(dtype):
+    """Quiet NaNs of both signs among +-inf and both zeros, and NaN pivots.
+    The two contracts differ and each follows its JAX reference: the fused
+    counts put a NaN in gt (n - lt - eq), the segmented ones on no side;
+    neither puts a NaN in a band, and a NaN pivot has no band."""
+    x = _data(dtype, seed=11).astype(np.float64)
+    x[::5] = np.nan
+    x[2::9] = -np.nan
+    x = x.astype(_np_dtype(dtype))
+    assert np.signbit(x[2]) and not np.signbit(x[0])
+    finite = x[~np.isnan(x.astype(np.float64))]
+    pv = np.concatenate([_pivots(finite),
+                         np.array([np.nan, -np.nan]).astype(x.dtype)])
+    rng = np.random.default_rng(11)
+    keys = rng.integers(-1, 4, size=N).astype(np.int32)
+    grid = pv[np.arange(3 * 4) % len(pv)].reshape(3, 4)
+    xt, kt = as_device_tensor(x, "cpu"), torch.from_numpy(keys)
+    with _x64(dtype):
+        for cap in (37, N):
+            want = jops.segmented_count_extract(
+                jnp.asarray(x), jnp.asarray(keys), jnp.asarray(grid), cap,
+                backend="jnp")
+            got = ops.segmented_count_extract(xt, kt,
+                                              as_device_tensor(grid, "cpu"),
+                                              cap)
+            for g, w in zip(got, want):
+                assert tbits(g) == jbits(w), (dtype, cap)
+            for pivot in pv:
+                want = _jax_fused(x, pivot, cap)
+                got = ops.fused_count_extract(
+                    xt, as_device_tensor(pivot.reshape(1), "cpu")[0], cap)
+                for g, w in zip(got, want):
+                    assert tbits(g) == jbits(w), (dtype, cap, pivot)
+
+
 def test_interpret_counting_kernels_match_plain():
     """The four Pallas kernels themselves (interpret mode) against the
     port: partition_count, band_count, byte_histogram, segmented_select."""
