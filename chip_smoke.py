@@ -12,7 +12,10 @@
    edge cases (pivots at and beyond the extremes, all-equal data, ties,
    mixed -0.0/+0.0, the dtype's sentinels in the data, n not a multiple of
    the vector width, cap = n_i, duplicate pivots, more pivots than one
-   launch takes; for both fused kernels also bands wider than one run of
+   launch takes; for the three band kernels also quiet NaNs of both signs
+   among +-inf, +-0.0 and the sentinels, NaN pivots, and at cap = n_i
+   above bands that reach the top bin; for both fused kernels also bands
+   wider than one run of
    the band sort at 2^20 values a shard: 1 to 10 runs, trimmed and whole,
    ties and mixed -0.0/+0.0 across run boundaries, pivots +-0.0 beside
    subnormal neighbours in their canonical bin; for segmented_select also
@@ -45,7 +48,23 @@
    read, and every kernel of that path must have launched.  Each prints its
    median wall time of 5 runs after one warm-up, phase times, pass counts,
    peak memory and a torch.profiler breakdown.
-7. Times each kernel at its path's shapes beside its bound, its plain
+7. Drives the sharded engine (``distributed_quantile(_multi)``,
+   ``distributed_quantile_grouped``) over a gloo world of WORLD = 6 ranks,
+   each a process on this one card (NCCL refuses two ranks on one device,
+   so CUDA tensors cross gloo through host memory), each holding 20 x 2^23
+   contiguous values of 4's array and of 6's data, handed over by CUDA IPC:
+   ``distributed_quantile(q=0.5, fused=True)`` (fused_select), the faithful
+   plan (partition_count), ``distributed_quantile_multi`` over the 5 levels
+   cold and warm (fused_select_multi) and the grouped query with
+   ``fused=True, check_nans=False`` (segmented_select).  Every answer must
+   equal 4's and 6's sort oracles bit for bit, and every rank zeroes its
+   launch counts before each query's runs and must find the query's kernel
+   launched after them.  Prints each query's median of 5 runs after one
+   warm-up, phase times, collective counts and bytes with the host time of
+   the copies, and each rank's peak memory.  Then a world of one rank on
+   NCCL answers the 5 levels on one shard with no host copy.  These times
+   are of six ranks sharing one card, not of six cards.
+8. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
    one ``kernels`` JSON line with all six.
 
@@ -70,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 P, N_I, EPS = 120, 1 << 23, 1e-4
 QS = (0.01, 0.25, 0.5, 0.75, 0.99)
 GROUPS, GROUP_QS = 32, (0.5, 0.99)
+WORLD = 6                          # ranks of the sharded phase, on one card
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
 U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -187,11 +207,34 @@ def _case_data(dtype, kind: str, shape, gen):
         flat[::7] = lo
         flat[3::11] = hi
         return x
+    if kind == "nans":                      # floats only
+        x = _case_data(dtype, "sentinels", shape, gen)
+        flat = x.view(-1)
+        pos, neg = _nans(dtype)
+        flat[::5] = pos
+        flat[2::9] = neg
+        flat[4::13] = -0.0
+        flat[6::13] = 0.0
+        return x
     raise ValueError(kind)
+
+
+# quiet NaNs of both signs, as raw bits
+_NAN_BITS = {torch.float32: (0x7FC00000, -0x00400000),
+             torch.bfloat16: (0x7FC0, -0x40),
+             torch.float64: (0x7FF8000000000000, -0x0008000000000000)}
+
+
+def _nans(dtype) -> torch.Tensor:
+    """(+NaN, -NaN) of a float dtype on the card, bit for bit."""
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[dtype.itemsize]
+    return torch.tensor(_NAN_BITS[dtype], dtype=view).view(dtype).cuda()
 
 
 def _pivots_for(x: torch.Tensor):
     flat = x.reshape(-1)
+    if x.dtype.is_floating_point:
+        flat = flat[~torch.isnan(flat)]
     srt = torch.sort(flat.double()).values
     lo, hi = srt[0], srt[-1]
     picks = [srt[len(srt) // 2], srt[len(srt) // 10], lo, hi]
@@ -202,7 +245,10 @@ def _pivots_for(x: torch.Tensor):
     else:
         picks += [torch.tensor(torch.iinfo(torch.int32).min),
                   torch.tensor(torch.iinfo(torch.int32).max)]
-    return torch.stack([p.to(x.dtype).cuda() for p in picks])
+    picks = torch.stack([p.to(x.dtype).cuda() for p in picks])
+    if x.dtype.is_floating_point and bool(torch.isnan(x).any()):
+        picks = torch.cat([picks, _nans(x.dtype)])      # NaN pivots
+    return picks
 
 
 class Tally:
@@ -233,9 +279,12 @@ def fused_parity(tally) -> None:
              ("all_equal", (2, 4096), [16, 4096]),
              ("ties", (3, 20_000), [2000]),
              ("signed_zeros", (2, 3001), [40, 3001]),
-             ("sentinels", (2, 5000), [100, 5000])]
+             ("sentinels", (2, 5000), [100, 5000]),
+             ("nans", (2, 5001), [100, 5001])]
     for dtype in DTYPES:
         for kind, shape, caps in cases:
+            if kind == "nans" and not dtype.is_floating_point:
+                continue
             x = _case_data(dtype, kind, shape, gen)
             pivots = _pivots_for(x)
             if kind == "signed_zeros" and dtype.is_floating_point:
@@ -385,7 +434,10 @@ def _pivot_grids(x: torch.Tensor, keys: torch.Tensor, G: int, Q: int):
     cyc = pool[torch.arange(G * Q, device="cuda") % pool.numel()]
     own = []
     for g in range(G):
-        mine = torch.sort(x[keys == g].double()).values
+        mine = x[keys == g]
+        if x.dtype.is_floating_point:
+            mine = mine[~torch.isnan(mine)]
+        mine = torch.sort(mine.double()).values
         for q in range(Q):
             own.append(mine[(q + 1) * (mine.numel() - 1) // (Q + 1)]
                        if mine.numel() else pool[0].double())
@@ -404,6 +456,7 @@ SEGMENTED_CASES = [
     ("sentinels", (2, 5000), 3, 2, "spread", [100, 5000]),
     ("normal", (2, 5000), 1, 1, "one", [64, 5000]),           # G*Q = 1
     ("normal", (2, 20_000), 100, 2, "spread", [50]),   # histograms in 2 slices
+    ("nans", (2, 5001), 3, 4, "spread", [100, 5001]),  # floats only
 ]
 
 
@@ -413,6 +466,8 @@ def segmented_parity(tally: Tally) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2468)
     for dtype in DTYPES:
         for kind, shape, G, Q, key_kind, caps in SEGMENTED_CASES:
+            if kind == "nans" and not dtype.is_floating_point:
+                continue
             x = _case_data(dtype, kind, shape, gen)
             keys = _group_keys(key_kind, shape, G, gen)
             for gi, grid in enumerate(_pivot_grids(x, keys, G, Q)):
@@ -631,7 +686,7 @@ def main_path(seed: int) -> dict:
         "passes_gk_select_multi": passes_multi,
         "peak_memory_bytes": peak, "launches": main_launches,
         "profiles": profiles, "kernels": kernels,
-    }, (x, pivots, want_single, k_single)
+    }, (x, pivots, want_single, want_multi, k_single)
 
 
 def _library_bands(x, pivots, cap):
@@ -893,7 +948,283 @@ def grouped_path(seed: int):
         "phases_s": phases, "passes": passes, "launches": launched,
         "peak_memory_bytes": runs_peak,
         "histogram_reads": ss.reads_per_launch(torch.float32, G, Q) - 1,
-        "profiles": profiles}, kernels
+        "profiles": profiles}, kernels, (values, keys, want)
+
+
+# ---------------------------------------------------------------------------
+# 7. the sharded path: a world of W ranks, each a process, on the one card
+# ---------------------------------------------------------------------------
+
+
+def _rank_setup(rank: int, world: int, store: str, backend: str):
+    """A rank's start: the port on its path, the card, the process group."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    return dist
+
+
+def _timed_runs(dist, fn) -> tuple:
+    """(last result, seconds of TIMED_RUNS runs after one warm-up), every
+    run started at a barrier of the world and ended by a synchronize."""
+    out, times = None, []
+    for _ in range(TIMED_RUNS + 1):
+        dist.barrier()
+        out, t = _sync_time(fn)
+        times.append(t)
+    return out, times[1:]
+
+
+def _sharded_phases(dist, x, v, k):
+    """Phase times of one fused multi-level query and one grouped query,
+    each phase between a barrier and a synchronize (this rank's clock)."""
+    from repro_torch.core import engine, grouped as gr, local_ops
+    from repro_torch.kernels import ops
+    coll = engine.Collectives()
+    n = x.numel() * coll.size
+
+    def timed(fn):
+        dist.barrier()
+        return _sync_time(fn)
+
+    multi, grouped = {}, {}
+    (g_vals, g_wts, m), multi["sketch_all_gather"] = timed(
+        lambda: engine.phase_sketch(x, coll=coll, n=n, eps=EPS))
+    ks = torch.tensor([local_ops.target_rank(n, q) for q in QS],
+                      dtype=torch.int32, device=x.device)
+    pivots, multi["pivot"] = timed(lambda: engine.phase_pivot(
+        g_vals, g_wts, ks, num_shards=coll.size, m=m))
+    cap = local_ops.candidate_cap(n, EPS, x.numel())
+    (c, b, a), multi["count_extract"] = timed(
+        lambda: engine.phase_count_extract(
+            x, pivots, cap, coll=coll, fused_fn=ops.make_fused_multi_fn()))
+    (b, a), multi["reduce"] = timed(
+        lambda: engine.phase_reduce(b, a, coll=coll))
+    _, multi["resolve"] = timed(
+        lambda: engine.phase_resolve(pivots, ks, c, b, a, cap))
+    del g_vals, g_wts, b, a
+
+    G, Q = GROUPS, len(GROUP_QS)
+    s = gr.grouped_sketch_samples(EPS, v.numel())
+    (g_vals, g_wts, n_g, slack), grouped["sketch_all_gather"] = timed(
+        lambda: gr.phase_grouped_sketch(v, k, coll=coll, num_groups=G, s=s))
+
+    def pivot():
+        kmat = gr.grouped_target_ranks(n_g, GROUP_QS)
+        return kmat, gr.query_grouped_sketch(g_vals, g_wts, slack, kmat)
+
+    (kmat, gpiv), grouped["pivot"] = timed(pivot)
+    del g_vals, g_wts
+    (c, b, a), grouped["count_extract"] = timed(
+        lambda: gr.phase_grouped_count_extract(
+            v, k, gpiv, cap, coll=coll, segmented_fn=ops.make_segmented_fn()))
+    (b, a), grouped["reduce"] = timed(lambda: engine.phase_reduce(
+        b.reshape(G * Q, -1), a.reshape(G * Q, -1), coll=coll))
+    _, grouped["resolve"] = timed(lambda: engine.phase_resolve(
+        gpiv.reshape(G * Q), kmat.reshape(G * Q), c.reshape(G * Q, 3), b, a,
+        cap))
+    del b, a
+
+    # rank 0's band kernels alone (the other ranks wait at a barrier), on
+    # its one shard and on the same values as 20 shards of 2^23
+    alone = {}
+    if coll.rank == 0:
+        fused, seg = ops.make_fused_multi_fn(), ops.make_segmented_fn()
+        alone = {
+            "fused_select_multi_1_shard": _profile(
+                lambda: fused(x, pivots, cap)),
+            "fused_select_multi_20_shards": _profile(
+                lambda: fused(x.reshape(-1, N_I), pivots, cap)),
+            "segmented_select_1_shard": _profile(
+                lambda: seg(v, k, gpiv, cap))}
+    dist.barrier()
+    return {"distributed_quantile_multi": multi,
+            "distributed_quantile_grouped": grouped}, alone
+
+
+# the sharded queries: name -> (kernel each must launch, oracle's name)
+SHARDED_QUERIES = {"fused_q50": ("fused_select", "single"),
+                   "faithful_q50": ("partition_count", "single"),
+                   "multi_cold": ("fused_select_multi", "multi"),
+                   "multi_warm": ("fused_select_multi", "multi"),
+                   "grouped": ("segmented_select", "grouped")}
+
+
+def _sharded_rank(rank: int, world: int, store: str, out_dir: str,
+                  shared: list) -> None:
+    """One rank of the sharded phase: its 1/world of the main path's and
+    the grouped path's data (``shared``: the parent's tensors, by CUDA IPC;
+    emptied here, so that this rank's references end with it), every query
+    of ``SHARDED_QUERIES`` timed, its launches and collectives counted, its
+    answers written to ``out_dir/rank<r>.json``."""
+    x, values, keys = shared
+    shared.clear()
+    dist = _rank_setup(rank, world, store, "gloo")
+    import repro_torch.kernels as K
+    from repro_torch.core import (distributed_quantile,
+                                  distributed_quantile_grouped,
+                                  distributed_quantile_multi, engine,
+                                  local_ops)
+    torch.cuda.reset_peak_memory_stats()
+    xl = x.reshape(world, -1)[rank]
+    vl = values.reshape(world, -1)[rank]
+    kl = keys.reshape(world, -1)[rank]
+    coll = engine.Collectives()
+    # the warm job's pivots: what a maintained sketch would hand it
+    g_vals, g_wts, m = engine.phase_sketch(xl, coll=coll, n=x.numel(),
+                                           eps=EPS)
+    warm = engine.phase_pivot(g_vals, g_wts, torch.tensor(
+        [local_ops.target_rank(x.numel(), q) for q in QS], device=x.device),
+        num_shards=world, m=m)
+    del g_vals, g_wts
+    calls = {
+        "fused_q50": lambda: distributed_quantile(xl, 0.5, eps=EPS,
+                                                  fused=True),
+        "faithful_q50": lambda: distributed_quantile(xl, 0.5, eps=EPS),
+        "multi_cold": lambda: distributed_quantile_multi(xl, QS, eps=EPS,
+                                                         fused=True),
+        "multi_warm": lambda: distributed_quantile_multi(
+            xl, QS, eps=EPS, fused=True, pivots=warm),
+        "grouped": lambda: distributed_quantile_grouped(
+            vl, kl, GROUP_QS, num_groups=GROUPS, eps=EPS, fused=True,
+            check_nans=False)}
+    record = {"rank": rank, "queries": {}}
+    for name, call in calls.items():
+        K.reset_launches()
+        engine.reset_collectives()
+        got, runs = _timed_runs(dist, call)
+        launched = K.launches()
+        record["queries"][name] = {
+            "answer_bits": _bits(got).reshape(-1).tolist(),
+            "median_s": statistics.median(runs), "runs_s": runs,
+            "launches_per_query": {kn: c / (TIMED_RUNS + 1)
+                                   for kn, c in launched.items() if c},
+            "collectives_per_query": {kn: c / (TIMED_RUNS + 1) for kn, c in
+                                      engine.collectives().items()}}
+    record["phases_s"], record["kernels_alone"] = _sharded_phases(
+        dist, xl, vl, kl)
+    # rank 0's device time by kernel in one query of each kind, every rank
+    # running it
+    record["profiles"] = {}
+    for name in ("multi_cold", "grouped"):
+        dist.barrier()
+        if rank == 0:
+            record["profiles"][name] = _profile(calls[name])
+        else:
+            calls[name]()
+            calls[name]()
+    record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(record, fh)
+    del x, values, keys, xl, vl, kl, calls      # release the parent's memory
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def _nccl_rank(rank: int, world: int, store: str, out_dir: str,
+               shared: list) -> None:
+    """A world of one rank on NCCL: ``distributed_quantile_multi`` on a
+    CUDA shard (``shared``, as ``_sharded_rank``), the collectives passing
+    the card's tensors as they are."""
+    x, = shared
+    shared.clear()
+    dist = _rank_setup(rank, world, store, "nccl")
+    from repro_torch.core import distributed_quantile_multi, engine, local_ops
+    engine.reset_collectives()
+    got = distributed_quantile_multi(x, QS, eps=EPS, fused=True)
+    counts = engine.collectives()
+    ks = torch.tensor([local_ops.target_rank(x.numel(), q) for q in QS],
+                      device=x.device)
+    want = torch.sort(x).values[ks - 1]
+    with open(os.path.join(out_dir, "nccl.json"), "w") as fh:
+        json.dump({"exact": bool(torch.equal(_bits(got), _bits(want))),
+                   "answers": got.tolist(), "collectives": counts}, fh)
+    del x                                       # release the parent's memory
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def _run_world(fn, world: int, args: tuple, limit_s: float) -> None:
+    """Spawn ``fn`` on ``world`` ranks and join them within ``limit_s``:
+    a failed rank fails the run, and on time-out every rank is killed."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + limit_s
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{fn.__name__}: the world of {world} "
+                                   f"ranks did not finish in {limit_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+
+
+def sharded_path(x, wants: dict, values, keys) -> dict:
+    """The sharded engine on the card: a gloo world of WORLD ranks (NCCL
+    refuses two ranks on one device), each holding 1/WORLD of the main
+    path's and the grouped path's data, then an NCCL world of one rank.
+    Every answer must equal the sort oracles bit for bit, and every rank
+    must have launched each query's kernel."""
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _run_world(_sharded_rank, WORLD, (os.path.join(tmp, "store"), tmp,
+                                          [x, values, keys]), 600)
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        _run_world(_nccl_rank, 1, (os.path.join(tmp, "nccl_store"), tmp,
+                                   [x.reshape(WORLD, -1)[0]]), 300)
+        with open(os.path.join(tmp, "nccl.json")) as fh:
+            nccl = json.load(fh)
+    torch.cuda.ipc_collect()
+    for rec in ranks:
+        for name, (kernel, oracle) in SHARDED_QUERIES.items():
+            q = rec["queries"][name]
+            want = _bits(wants[oracle]).reshape(-1).tolist()
+            if q["answer_bits"] != want:
+                raise AssertionError(f"sharded {name} on rank {rec['rank']}: "
+                                     f"answer differs from the sort oracle")
+            if q["launches_per_query"].get(kernel, 0) <= 0:
+                raise AssertionError(f"sharded {name}: rank {rec['rank']} "
+                                     f"launched no {kernel}")
+    if not nccl["exact"]:
+        raise AssertionError("the NCCL world's answers differ from the sort")
+    if nccl["collectives"]["host_copies"] or not (
+            nccl["collectives"]["all_gather"]
+            and nccl["collectives"]["all_reduce"]):
+        raise AssertionError(f"NCCL world: collectives {nccl['collectives']}")
+    rank0 = ranks[0]
+    return {
+        "world": WORLD, "backend": "gloo, CUDA tensors copied through host "
+        "memory", "shard_values": x.numel() // WORLD, "n": x.numel(),
+        "eps": EPS, "world_wall_s": world_s,
+        "parent_allocated_bytes": parent_bytes,
+        "queries": {name: {
+            "median_s_rank0": q["median_s"], "runs_s_rank0": q["runs_s"],
+            "median_s_slowest_rank": max(rec["queries"][name]["median_s"]
+                                         for rec in ranks),
+            "launches_per_query_each_rank": [
+                rec["queries"][name]["launches_per_query"] for rec in ranks],
+            "collectives_per_query_rank0": q["collectives_per_query"]}
+            for name, q in rank0["queries"].items()},
+        "phases_s_rank0": rank0["phases_s"],
+        "profiles_rank0": rank0["profiles"],
+        "kernels_alone_rank0": rank0["kernels_alone"],
+        "peak_memory_bytes_each_rank": [rec["peak_memory_bytes"]
+                                        for rec in ranks],
+        "nccl_world_of_one": nccl}
 
 
 # ---------------------------------------------------------------------------
@@ -955,17 +1286,22 @@ def main() -> int:
     if bad:
         raise AssertionError("signed-zero answers differ between card and CPU")
 
-    result, (x, pivots, want, k) = main_path(args.seed)
+    result, (x, pivots, want, want_multi, k) = main_path(args.seed)
     kernels = result.pop("kernels")
     print(json.dumps({"main_path": result}), flush=True)
     result, rows = counting_path(x, pivots, want, k)
     kernels += rows
     print(json.dumps({"counting_path": result}), flush=True)
-    del x, pivots, want
+    del pivots
     torch.cuda.empty_cache()
-    result, rows = grouped_path(args.seed)
+    result, rows, (values, keys, want_grouped) = grouped_path(args.seed)
     kernels += rows
     print(json.dumps({"grouped_path": result}), flush=True)
+    result = sharded_path(x, {"single": want, "multi": want_multi,
+                              "grouped": want_grouped}, values, keys)
+    print(json.dumps({"sharded_path": result}), flush=True)
+    del x, values, keys
+    torch.cuda.empty_cache()
     for row in kernels:
         row["parity_cases"] = "{}/{}".format(*parity[row["name"]])
 

@@ -4,7 +4,9 @@
 core     the single-device engines: GK Select (sample sketch -> pivot -> one
          fused count+extract round over all shards -> resolve) and grouped
          GK Select (segmented sketch -> per-group pivots -> one segmented
-         round -> resolve)
+         round -> resolve); and the sharded engine over torch.distributed,
+         each rank holding one shard (``distributed_quantile(_multi)``,
+         ``distributed_quantile_grouped``)
 kernels  the Hopper kernels, their plain PyTorch versions, the device
          dispatch between them, and the counting and radix-select entry
          points
@@ -15,8 +17,10 @@ Entry points run where their tensor lives; those that take host data take
 from . import core, kernels
 from .core import (exact_quantile, exact_quantile_rank, gk_select,
                    gk_select_multi, gk_select_grouped, full_sort_quantile,
-                   approx_quantile)
+                   approx_quantile, distributed_quantile,
+                   distributed_quantile_multi, distributed_quantile_grouped)
 
 __all__ = ["core", "kernels", "exact_quantile", "exact_quantile_rank",
            "gk_select", "gk_select_multi", "gk_select_grouped",
-           "full_sort_quantile", "approx_quantile"]
+           "full_sort_quantile", "approx_quantile", "distributed_quantile",
+           "distributed_quantile_multi", "distributed_quantile_grouped"]

@@ -16,7 +16,15 @@ job answers every group g in [0, G) at every level of ``qs``:
 
 Keys outside [0, G) belong to no group and are ignored.  A group with no
 elements yields the dtype's high sentinel (+inf / int max).  NaN policy:
-reject.  The sharded faces wait for the engine's slice.
+reject.
+
+The sharded faces run the same phases over ``torch.distributed``
+(``engine.Collectives``), every rank holding its own (values, keys) shard:
+``phase_grouped_sketch`` (one all_gather per summary array, one int32
+all_reduce of counts and slack), ``phase_grouped_count_extract`` (counts
+all_reduce'd), then the engine's ``phase_reduce`` and ``phase_resolve``
+over the flattened (G*Q) rows; ``gk_select_grouped_sharded`` is the plan
+and ``distributed_quantile_grouped`` the entry point.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Sequence
 import torch
 
 from . import engine, local_ops
+from .engine import Collectives
 from .select import as_device_tensor
 from ..kernels import ops as kernel_ops
 
@@ -175,3 +184,115 @@ def gk_select_grouped(values, keys, qs: Sequence[float], *, num_groups: int,
     out = engine.phase_resolve(pivots.reshape(G * Q), kmat.reshape(G * Q),
                                cnt, below, above, cap)
     return out.reshape(G, Q)
+
+
+# ---------------------------------------------------------------------------
+# the sharded plan and its entry point
+# ---------------------------------------------------------------------------
+
+
+def phase_grouped_sketch(v_local: torch.Tensor, k_local: torch.Tensor, *,
+                         coll: Collectives, num_groups: int, s: int):
+    """Action 1, segmented: one (key, value) sort of this rank's shard, one
+    all_gather for each of the G summaries' values and weights, one int32
+    all_reduce for the group counts and slack.  Returns ``(g_vals (G,
+    P*s), g_wts, n_g (G,), slack (G,))``."""
+    vals, wts, counts, mslack = segmented_sketch_local(v_local, k_local,
+                                                       num_groups, s)
+    G = num_groups
+    g_vals = coll.all_gather(vals).transpose(0, 1).reshape(G, -1)
+    g_wts = coll.all_gather(wts).transpose(0, 1).reshape(G, -1)
+    sums = coll.all_reduce(torch.stack([counts, mslack]), "sum")
+    return g_vals, g_wts, sums[0], sums[1]
+
+
+def phase_grouped_count_extract(v_local: torch.Tensor, k_local: torch.Tensor,
+                                pivots: torch.Tensor, cap: int, *,
+                                coll: Collectives, segmented_fn=None):
+    """Actions 2+3's per-shard work for all (G, Q) pivots, counts
+    all_reduce'd.  ``segmented_fn`` ``(values, keys, pivots, cap) ->
+    (counts (G, Q, 3), below (G, Q, cap), above (G, Q, cap))``
+    (``kernels.ops.make_segmented_fn``: one ``segmented_select`` launch on
+    a CUDA shard); the plain round reads the shard 3*G*Q times."""
+    fn = segmented_fn or local_ops.grouped_count_extract
+    c_local, below, above = fn(v_local, k_local, pivots, cap)
+    return coll.all_reduce(c_local, "sum"), below, above
+
+
+def gk_select_grouped_sharded(v_local: torch.Tensor, k_local: torch.Tensor,
+                              *, qs: Sequence[float], num_groups: int,
+                              eps: float, coll: Collectives,
+                              reduce_strategy: str = "tree",
+                              segmented_fn=None, ks=None, pivots=None,
+                              cap: int = None) -> torch.Tensor:
+    """Exact quantiles at every level of ``qs`` for every group id in
+    [0, num_groups) from one sharded job: the (G, Q) values, replicated.
+
+    ``pivots`` (G x Q values) runs the job warm, with no sketch phase; warm
+    callers pass ``ks`` (the target ranks: group counts are caller-side
+    state) and should size ``cap`` from their tracked rank bound."""
+    n_local = v_local.shape[0]
+    n = n_local * coll.size
+    G, Q = num_groups, len(qs)
+    if pivots is not None:
+        if ks is None:
+            raise ValueError("warm grouped path needs ks alongside pivots")
+        kmat = grouped_target_ranks(
+            torch.zeros((G,), dtype=torch.int32, device=v_local.device), qs,
+            ks)
+        pivots = engine.as_like(pivots, v_local).reshape(G, Q)
+    else:
+        s = grouped_sketch_samples(eps, n_local)
+        g_vals, g_wts, n_g, slack = phase_grouped_sketch(
+            v_local, k_local, coll=coll, num_groups=G, s=s)
+        kmat = grouped_target_ranks(n_g, qs, ks)
+        pivots = query_grouped_sketch(g_vals, g_wts, slack, kmat)
+        del g_vals, g_wts
+
+    cap = cap if cap is not None else local_ops.candidate_cap(n, eps, n_local)
+    counts, below, above = phase_grouped_count_extract(
+        v_local, k_local, pivots, cap, coll=coll, segmented_fn=segmented_fn)
+    below, above = engine.phase_reduce(
+        below.reshape(G * Q, -1), above.reshape(G * Q, -1), coll=coll,
+        strategy=reduce_strategy)
+    out = engine.phase_resolve(pivots.reshape(G * Q), kmat.reshape(G * Q),
+                               counts.reshape(G * Q, 3), below, above, cap)
+    return out.reshape(G, Q)
+
+
+def distributed_quantile_grouped(values, keys, qs: Sequence[float], *,
+                                 num_groups: int, group=None,
+                                 eps: float = 0.01,
+                                 reduce_strategy: str = "tree",
+                                 fused: bool = False, ks=None,
+                                 check_nans: bool = True, pivots=None,
+                                 cap: int = None,
+                                 device="cuda") -> torch.Tensor:
+    """Exact per-group quantiles over the ranks of ``group``: each rank
+    holds flat ``values`` and ``keys`` of one length; every rank gets the
+    (num_groups, len(qs)) values, each (group, level) cell bit-identical
+    to the per-group sort oracle.  ``fused=True`` runs the count+extract
+    round through ``segmented_select`` (one launch per CUDA shard).
+    ``pivots``/``cap`` with ``ks`` run the warm job.  NaN policy: reject;
+    ``check_nans=False`` hands unchecked values straight to the round,
+    whose kernel and plain version count a NaN on no side.  Host data goes
+    to ``device``; tensors stay where they are."""
+    qs = tuple(float(q) for q in qs)
+    if not qs:
+        raise ValueError("qs must name at least one quantile level")
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be >= 1, got {num_groups}")
+    values = as_device_tensor(values, device)
+    keys = as_device_tensor(keys, device)
+    coll = Collectives(group)
+    ok = values.dim() == 1 and keys.shape == values.shape
+    engine.check_shards(
+        coll, values, "distributed_quantile_grouped",
+        problem=None if ok else "values/keys must be equal-length flat "
+                                "shards",
+        check_nans=check_nans)
+    return gk_select_grouped_sharded(
+        values, keys.to(torch.int32), qs=qs, num_groups=int(num_groups),
+        eps=eps, coll=coll, reduce_strategy=reduce_strategy,
+        segmented_fn=kernel_ops.make_segmented_fn() if fused else None,
+        ks=ks, pivots=pivots, cap=cap)

@@ -37,7 +37,8 @@ def _env(**extra):
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core.select, "
             "repro_torch.core.baselines, repro_torch.core.grouped, "
-            "repro_torch.core.engine, repro_torch.kernels.dispatch, "
+            "repro_torch.core.engine, repro_torch.core.distributed, "
+            "repro_torch.kernels.dispatch, "
             "repro_torch.kernels.ops, repro_torch.kernels.fused_select, "
             "repro_torch.kernels.partition_count, "
             "repro_torch.kernels.band_count, "
@@ -74,6 +75,7 @@ def test_no_source_imports_jax_or_repro():
 def test_layout_mirrors_the_jax_package():
     for rel in ("core/local_ops.py", "core/sketch.py", "core/select.py",
                 "core/baselines.py", "core/engine.py", "core/grouped.py",
+                "core/distributed.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
                 "kernels/fused_select.py", "kernels/partition_count.py",
                 "kernels/band_count.py", "kernels/segmented_select.py",
