@@ -61,9 +61,15 @@
    launch counts before each query's runs and must find the query's kernel
    launched after them.  Prints each query's median of 5 runs after one
    warm-up, phase times, collective counts and bytes with the host time of
-   the copies, and each rank's peak memory.  Then a world of one rank on
-   NCCL answers the 5 levels on one shard with no host copy.  These times
-   are of six ranks sharing one card, not of six cards.
+   the copies, and each rank's peak memory.  The ranks then take turns to
+   hold fused_select, fused_select_multi, partition_count and
+   segmented_select on their own shard, at the path's pivots and cap,
+   against the plain versions bit for bit (these cases join 2's tally).
+   Then a world of one rank on NCCL answers the 5 levels and the median by
+   the PSRS plan (its all_to_all) on one shard with no host copy.  These
+   times are of six ranks sharing one card, not of six cards.  The main
+   path's array is freed before 6 and made again from ``--seed`` for 7, so
+   that 6's peak memory counts 6's data alone.
 8. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
    one ``kernels`` JSON line with all six.
@@ -219,16 +225,10 @@ def _case_data(dtype, kind: str, shape, gen):
     raise ValueError(kind)
 
 
-# quiet NaNs of both signs, as raw bits
-_NAN_BITS = {torch.float32: (0x7FC00000, -0x00400000),
-             torch.bfloat16: (0x7FC0, -0x40),
-             torch.float64: (0x7FF8000000000000, -0x0008000000000000)}
-
-
 def _nans(dtype) -> torch.Tensor:
     """(+NaN, -NaN) of a float dtype on the card, bit for bit."""
-    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[dtype.itemsize]
-    return torch.tensor(_NAN_BITS[dtype], dtype=view).view(dtype).cuda()
+    from repro_torch.testing import nans
+    return nans(dtype, "cuda")
 
 
 def _pivots_for(x: torch.Tensor):
@@ -578,6 +578,14 @@ def signed_zero_path() -> int:
 # ---------------------------------------------------------------------------
 
 
+def _main_data(seed: int) -> torch.Tensor:
+    """The main path's (P, N_I) float32 normal values from ``seed``; the
+    same bits on every call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((P, N_I), generator=gen, device="cuda",
+                       dtype=torch.float32)
+
+
 def main_path(seed: int) -> dict:
     from repro_torch.core import gk_select, gk_select_multi, local_ops
     from repro_torch.core.sketch import (local_sample_sketch,
@@ -585,9 +593,7 @@ def main_path(seed: int) -> dict:
                                          sample_sketch_params)
     from repro_torch.kernels import fused_select as fs, ops, ref
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((P, N_I), generator=gen, device="cuda",
-                    dtype=torch.float32)
+    x = _main_data(seed)
     n = x.numel()
     k_single = local_ops.target_rank(n, 0.5)
     ks = [local_ops.target_rank(n, q) for q in QS]
@@ -977,9 +983,45 @@ def _timed_runs(dist, fn) -> tuple:
     return out, times[1:]
 
 
+def _sharded_parity(dist, coll, x, v, k, pivots, gpiv, cap) -> list:
+    """The four kernels of the sharded path on this rank's shard, at the
+    path's shapes (one shard of 167.8M values, its pivots and cap), against
+    their plain versions on the same card inputs, bit for bit.  The ranks
+    take turns, so that one plain version runs on the card at a time.
+    Returns [kernel, passed, case] for the parity tally."""
+    from repro_torch.core import local_ops
+    from repro_torch.kernels import ops, ref
+    p = pivots[QS.index(0.5)]
+    cases = (("fused_select", lambda: ops.fused_count_extract(x, p, cap),
+              lambda: ref.fused_select_ref(x, p, cap)),
+             ("fused_select_multi",
+              lambda: ops.fused_count_extract_multi(x, pivots, cap),
+              lambda: ref.fused_select_multi_ref(x, pivots, cap)),
+             ("partition_count", lambda: (ops.count3(x, p),),
+              lambda: (local_ops.count3(x, p),)),
+             ("segmented_select",
+              lambda: ops.segmented_count_extract(v, k, gpiv, cap),
+              lambda: ref.segmented_select_ref(v, k, gpiv, cap)))
+    out = []
+    for turn in range(coll.size):
+        dist.barrier()
+        if turn != coll.rank:
+            continue
+        for name, kernel, plain in cases:
+            got, want = kernel(), plain()
+            out.append([name, _same_bits(got, want),
+                        f"sharded rank {coll.rank} shard {x.numel()} "
+                        f"cap={cap}"])
+            del got, want
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def _sharded_phases(dist, x, v, k):
     """Phase times of one fused multi-level query and one grouped query,
-    each phase between a barrier and a synchronize (this rank's clock)."""
+    each phase between a barrier and a synchronize (this rank's clock);
+    then ``_sharded_parity`` at their pivots and cap."""
     from repro_torch.core import engine, grouped as gr, local_ops
     from repro_torch.kernels import ops
     coll = engine.Collectives()
@@ -1026,6 +1068,7 @@ def _sharded_phases(dist, x, v, k):
         gpiv.reshape(G * Q), kmat.reshape(G * Q), c.reshape(G * Q, 3), b, a,
         cap))
     del b, a
+    parity = _sharded_parity(dist, coll, x, v, k, pivots, gpiv, cap)
 
     # rank 0's band kernels alone (the other ranks wait at a barrier), on
     # its one shard and on the same values as 20 shards of 2^23
@@ -1041,7 +1084,7 @@ def _sharded_phases(dist, x, v, k):
                 lambda: seg(v, k, gpiv, cap))}
     dist.barrier()
     return {"distributed_quantile_multi": multi,
-            "distributed_quantile_grouped": grouped}, alone
+            "distributed_quantile_grouped": grouped}, parity, alone
 
 
 # the sharded queries: name -> (kernel each must launch, oracle's name)
@@ -1103,8 +1146,8 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str,
                                    for kn, c in launched.items() if c},
             "collectives_per_query": {kn: c / (TIMED_RUNS + 1) for kn, c in
                                       engine.collectives().items()}}
-    record["phases_s"], record["kernels_alone"] = _sharded_phases(
-        dist, xl, vl, kl)
+    (record["phases_s"], record["parity"],
+     record["kernels_alone"]) = _sharded_phases(dist, xl, vl, kl)
     # rank 0's device time by kernel in one query of each kind, every rank
     # running it
     record["profiles"] = {}
@@ -1125,21 +1168,27 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str,
 
 def _nccl_rank(rank: int, world: int, store: str, out_dir: str,
                shared: list) -> None:
-    """A world of one rank on NCCL: ``distributed_quantile_multi`` on a
-    CUDA shard (``shared``, as ``_sharded_rank``), the collectives passing
-    the card's tensors as they are."""
+    """A world of one rank on NCCL: ``distributed_quantile_multi`` and the
+    PSRS plan (``method="full_sort"``, its all_to_all) on a CUDA shard
+    (``shared``, as ``_sharded_rank``), the collectives passing the card's
+    tensors as they are."""
     x, = shared
     shared.clear()
     dist = _rank_setup(rank, world, store, "nccl")
-    from repro_torch.core import distributed_quantile_multi, engine, local_ops
+    from repro_torch.core import (distributed_quantile,
+                                  distributed_quantile_multi, engine,
+                                  local_ops)
     engine.reset_collectives()
     got = distributed_quantile_multi(x, QS, eps=EPS, fused=True)
+    got_sort = distributed_quantile(x, 0.5, method="full_sort")
     counts = engine.collectives()
     ks = torch.tensor([local_ops.target_rank(x.numel(), q) for q in QS],
                       device=x.device)
     want = torch.sort(x).values[ks - 1]
     with open(os.path.join(out_dir, "nccl.json"), "w") as fh:
         json.dump({"exact": bool(torch.equal(_bits(got), _bits(want))),
+                   "exact_full_sort": bool(torch.equal(
+                       _bits(got_sort), _bits(want[QS.index(0.5)]))),
                    "answers": got.tolist(), "collectives": counts}, fh)
     del x                                       # release the parent's memory
     torch.cuda.synchronize()
@@ -1147,30 +1196,18 @@ def _nccl_rank(rank: int, world: int, store: str, out_dir: str,
 
 
 def _run_world(fn, world: int, args: tuple, limit_s: float) -> None:
-    """Spawn ``fn`` on ``world`` ranks and join them within ``limit_s``:
-    a failed rank fails the run, and on time-out every rank is killed."""
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + limit_s
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{fn.__name__}: the world of {world} "
-                                   f"ranks did not finish in {limit_s} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-            proc.join(5)
+    """``repro_torch.testing.run_world`` within ``limit_s`` from now."""
+    from repro_torch.testing import run_world
+    run_world(fn, world, args, time.monotonic() + limit_s)
 
 
-def sharded_path(x, wants: dict, values, keys) -> dict:
+def sharded_path(x, wants: dict, values, keys, tally: Tally) -> dict:
     """The sharded engine on the card: a gloo world of WORLD ranks (NCCL
     refuses two ranks on one device), each holding 1/WORLD of the main
     path's and the grouped path's data, then an NCCL world of one rank.
     Every answer must equal the sort oracles bit for bit, and every rank
-    must have launched each query's kernel."""
+    must have launched each query's kernel.  Each rank's kernels at the
+    path's shapes join ``tally``."""
     import tempfile
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1190,6 +1227,8 @@ def sharded_path(x, wants: dict, values, keys) -> dict:
             nccl = json.load(fh)
     torch.cuda.ipc_collect()
     for rec in ranks:
+        for name, ok, what in rec["parity"]:
+            tally.add(name, ok, what)
         for name, (kernel, oracle) in SHARDED_QUERIES.items():
             q = rec["queries"][name]
             want = _bits(wants[oracle]).reshape(-1).tolist()
@@ -1199,11 +1238,12 @@ def sharded_path(x, wants: dict, values, keys) -> dict:
             if q["launches_per_query"].get(kernel, 0) <= 0:
                 raise AssertionError(f"sharded {name}: rank {rec['rank']} "
                                      f"launched no {kernel}")
-    if not nccl["exact"]:
+    if not (nccl["exact"] and nccl["exact_full_sort"]):
         raise AssertionError("the NCCL world's answers differ from the sort")
     if nccl["collectives"]["host_copies"] or not (
             nccl["collectives"]["all_gather"]
-            and nccl["collectives"]["all_reduce"]):
+            and nccl["collectives"]["all_reduce"]
+            and nccl["collectives"]["all_to_all"]):
         raise AssertionError(f"NCCL world: collectives {nccl['collectives']}")
     rank0 = ranks[0]
     return {
@@ -1224,6 +1264,12 @@ def sharded_path(x, wants: dict, values, keys) -> dict:
         "kernels_alone_rank0": rank0["kernels_alone"],
         "peak_memory_bytes_each_rank": [rec["peak_memory_bytes"]
                                         for rec in ranks],
+        "parity_at_path_shapes": {
+            name: "{}/{}".format(
+                sum(ok for rec in ranks for kn, ok, _ in rec["parity"]
+                    if kn == name),
+                sum(kn == name for rec in ranks for kn, _, _ in rec["parity"]))
+            for name, _ in SHARDED_QUERIES.values()},
         "nccl_world_of_one": nccl}
 
 
@@ -1292,14 +1338,20 @@ def main() -> int:
     result, rows = counting_path(x, pivots, want, k)
     kernels += rows
     print(json.dumps({"counting_path": result}), flush=True)
-    del pivots
+    del x, pivots                # the grouped path's peak counts its own data
     torch.cuda.empty_cache()
     result, rows, (values, keys, want_grouped) = grouped_path(args.seed)
     kernels += rows
     print(json.dumps({"grouped_path": result}), flush=True)
+    x = _main_data(args.seed)    # the same array again, for the sharded path
     result = sharded_path(x, {"single": want, "multi": want_multi,
-                              "grouped": want_grouped}, values, keys)
+                              "grouped": want_grouped}, values, keys, tally)
     print(json.dumps({"sharded_path": result}), flush=True)
+    parity = tally.result()
+    for name, (p, t) in parity.items():
+        if p != t:
+            raise AssertionError(f"{name}: {t - p} of {t} cases differ from "
+                                 f"the plain version")
     del x, values, keys
     torch.cuda.empty_cache()
     for row in kernels:

@@ -400,19 +400,18 @@ def gk_select_multi_sharded(x_local: torch.Tensor, *, qs: Sequence[float],
 def gk_select_sharded(x_local: torch.Tensor, *, q: float, eps: float,
                       coll: Collectives, speculative: bool = False,
                       reduce_strategy: str = "tree", count3_fn=None,
-                      extract_fns=None, fused_fn=None) -> torch.Tensor:
+                      fused_fn=None) -> torch.Tensor:
     """GK Select over the ranks: the exact quantile as a 0-d tensor,
     replicated.  The faithful plan counts (``count3_fn``, e.g.
     ``kernels.ops.make_count3_fn()``), reads the rank gap's sign on the
-    host and extracts one side only, sign-folded so that one "above" seam
-    serves both.  ``speculative=True`` or ``fused_fn`` (``(x, pivot, cap)
-    -> (counts, below, above)``) is the Q = 1 case of the multi plan."""
+    host and extracts one side only, sign-folded so that one "above"
+    extraction serves both.  ``speculative=True`` or ``fused_fn`` (``(x,
+    pivot, cap) -> (counts, below, above)``) is the Q = 1 case of the multi
+    plan."""
     n_local = x_local.shape[0]
     n = n_local * coll.size
     k = local_ops.target_rank(n, q)
     count3 = count3_fn or local_ops.count3
-    ex_below = extract_fns[0] if extract_fns else local_ops.extract_below
-    ex_above = extract_fns[1] if extract_fns else local_ops.extract_above
 
     if speculative or fused_fn is not None:
         multi_fused = None
@@ -422,8 +421,9 @@ def gk_select_sharded(x_local: torch.Tensor, *, q: float, eps: float,
                 return c[None], b[None], a[None]
 
         def count_extract(x, pivot_, cap_):
-            return (count3(x, pivot_), ex_below(x, pivot_, cap_),
-                    ex_above(x, pivot_, cap_))
+            return (count3(x, pivot_),
+                    local_ops.extract_below(x, pivot_, cap_),
+                    local_ops.extract_above(x, pivot_, cap_))
 
         return gk_select_multi_sharded(
             x_local, qs=(q,), eps=eps, coll=coll,
@@ -444,7 +444,7 @@ def gk_select_sharded(x_local: torch.Tensor, *, q: float, eps: float,
     # the left side negated: "smallest above -pivot" == "largest below
     # pivot", so one extraction of cap lanes serves either side
     y = -x_local if go_left else x_local
-    cand = ex_above(y, -pivot if go_left else pivot, cap)
+    cand = local_ops.extract_above(y, -pivot if go_left else pivot, cap)
     if reduce_strategy == "tree":
         cand = tree_reduce_candidates(cand, coll, keep_largest=False)
     else:

@@ -18,6 +18,7 @@ from repro_torch.kernels import fused_select as fs, ops, ref  # noqa: E402
 from repro_torch.kernels import band_count as bc              # noqa: E402
 from repro_torch.kernels import partition_count as pc         # noqa: E402
 from repro_torch.kernels import segmented_select as ss        # noqa: E402
+from repro_torch.testing import nans                          # noqa: E402
 
 N = 1001                        # not a multiple of any vector width
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
@@ -212,16 +213,6 @@ def test_segmented_kernel_sorts_wide_bands_on_card(cuda, dtype):
             assert _bits(g) == _bits(w), (dtype, cap)
 
 
-_NAN_BITS = {torch.float32: (0x7FC00000, -0x00400000),
-             torch.bfloat16: (0x7FC0, -0x40),
-             torch.float64: (0x7FF8000000000000, -0x0008000000000000)}
-
-
-def _nans(dtype, device):
-    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[dtype.itemsize]
-    return torch.tensor(_NAN_BITS[dtype], dtype=view).view(dtype).to(device)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
                                    torch.float64))
@@ -231,12 +222,12 @@ def test_band_kernels_skip_nan_on_card(cuda, dtype):
     on no side; none puts a NaN in a band, and a NaN pivot has no band.  At
     cap = N the above bands reach the top bin, where +NaN's key lies."""
     x = _data(dtype, cuda)
-    pos, neg = _nans(dtype, cuda)
+    pos, neg = nans(dtype, cuda)
     flat = x.view(-1)
     flat[::5] = pos
     flat[2::9] = neg
     pv = torch.cat([_pivots(x[~torch.isnan(x)].reshape(1, -1)),
-                    _nans(dtype, cuda)])
+                    nans(dtype, cuda)])
     gen = torch.Generator(device=cuda).manual_seed(5)
     keys = torch.randint(-1, 4, x.shape, generator=gen, device=cuda,
                          dtype=torch.int32)

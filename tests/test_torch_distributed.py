@@ -38,13 +38,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch.distributed as dist                              # noqa: E402
-import torch.multiprocessing as mp                            # noqa: E402
 
 from _grid import (_np_dtype, exact_target_rank, make_case,   # noqa: E402
                    target_rank)
 import repro_torch as T                                       # noqa: E402
 from repro_torch.core import engine                           # noqa: E402
 from repro_torch.core.select import as_device_tensor          # noqa: E402
+from repro_torch.testing import run_world                     # noqa: E402
 
 # ---------------------------------------------------------------------------
 # the cases, numpy only: both sides make the same inputs from them
@@ -532,25 +532,6 @@ _JAX_CMD = ("import sys; sys.path.insert(0, {!r}); "
             "t.jax_main(sys.argv[1], int(sys.argv[2]))").format(HERE)
 
 
-def _spawn_world(P: int, out_dir: str, deadline: float) -> None:
-    """Run the worker on P ranks; raise if a rank fails or the world is not
-    done by ``deadline`` (then every rank is killed)."""
-    ctx = mp.start_processes(port_rank, args=(P, os.path.join(out_dir,
-                                                          f"store_{P}"),
-                                          out_dir),
-                             nprocs=P, join=False, start_method="spawn")
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"the gloo world of {P} ranks did not "
-                                   f"finish in time")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-            proc.join(5)
-
-
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("dist"))
@@ -565,7 +546,8 @@ def results(tmp_path_factory):
         for P in WORLDS]
     try:
         for P in WORLDS:
-            _spawn_world(P, out, deadline)
+            run_world(port_rank, P, (os.path.join(out, f"store_{P}"), out),
+                      deadline)
         for proc in jax_procs:
             _, err = proc.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))

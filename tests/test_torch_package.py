@@ -42,7 +42,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.kernels.fused_select, "
             "repro_torch.kernels.partition_count, "
             "repro_torch.kernels.band_count, "
-            "repro_torch.kernels.segmented_select\n"
+            "repro_torch.kernels.segmented_select, repro_torch.testing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
