@@ -48,7 +48,34 @@
    read, and every kernel of that path must have launched.  Each prints its
    median wall time of 5 runs after one warm-up, phase times, pass counts,
    peak memory and a torch.profiler breakdown.
-7. Drives the sharded engine (``distributed_quantile(_multi)``,
+7. Drives the streaming service (``repro_torch.QuantileService``, fused).
+   ``service_path``: one stream at the paper's size, the main path's array
+   ingested as 120 ticks of one 2^23-value row, eps = 1e-4 (budget
+   65,536): ``approx(0.5)``, warm ``exact(0.5)`` (no sketch sort, 120
+   ``fused_select`` launches), cold ``exact(0.5, warm=False)`` (120 sorts)
+   and ``exact_all`` over the 5 levels (120 ``segmented_select``
+   launches), each equal bit for bit to 4's sort oracles; then a snapshot
+   through ``save_service_snapshot``, whose restored warm ``exact`` is the
+   same bits with no sketch sort.  ``tenants_path``: TENANTS = 4096
+   telemetry streams over 16 ticks of host batches (lengths 1..4096 from
+   ``--seed``, lognormal(1.0, 0.6) x (1 + 0.3 (stream mod 32)) f32), eps =
+   0.01: ``exact_all((0.5, 0.99))`` fused (``segmented_select``, one launch
+   per 4096 pivots of a record) and row-wise, warm ``exact`` on 8 streams,
+   each against one (stream, value) sort of everything; the same ticks
+   staged into 4 ``local_buffer()``s and landed by one ``fold_many``
+   (``exact_all`` equal to the serial answers); a windowed service (8
+   ticks, 4 sub-windows): ``windowed`` over tick and value windows against
+   a sort of each window's raw values, ``approx_decayed`` against the CPU
+   port on the same state, at most 8 ring records.  Each query runs once
+   with every count zeroed just before it (its launches, sketch sorts and
+   reads must be the expected ones), then 5 times after a warm-up; each
+   path prints phase times, the CUDA kernels and copies of one ingest
+   tick (torch.profiler; at S = 1 and S = 4096 for the tenants), peak
+   memory and a profiler top list.  The kernels join 2's tally at the
+   service's shapes: ``fused_select`` on the 2^23 chunk and on every
+   ragged chunk of 4 tenants, ``segmented_select`` on a tick record at
+   the service caps (G*Q = 5; 4096 of a tenants record's first 256 rows).
+8. Drives the sharded engine (``distributed_quantile(_multi)``,
    ``distributed_quantile_grouped``) over a gloo world of WORLD = 6 ranks,
    each a process on this one card (NCCL refuses two ranks on one device,
    so CUDA tensors cross gloo through host memory), each holding 20 x 2^23
@@ -68,11 +95,12 @@
    Then a world of one rank on NCCL answers the 5 levels and the median by
    the PSRS plan (its all_to_all) on one shard with no host copy.  These
    times are of six ranks sharing one card, not of six cards.  The main
-   path's array is freed before 6 and made again from ``--seed`` for 7, so
-   that 6's peak memory counts 6's data alone.
-8. Times each kernel at its path's shapes beside its bound, its plain
+   path's array is freed before 6 and made again from ``--seed`` for 7 and
+   8, so that 6's peak memory counts 6's data alone.
+9. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
-   one ``kernels`` JSON line with all six.
+   one ``kernels`` JSON line with all six, each with its launches per
+   service query.
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -95,6 +123,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 P, N_I, EPS = 120, 1 << 23, 1e-4
 QS = (0.01, 0.25, 0.5, 0.75, 0.99)
 GROUPS, GROUP_QS = 32, (0.5, 0.99)
+TENANTS, TENANT_TICKS, TENANT_LEN = 4096, 16, 4096   # the tenants path
+TENANT_EPS, TENANT_QS = 0.01, (0.5, 0.99)
 WORLD = 6                          # ranks of the sharded phase, on one card
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
@@ -847,26 +877,28 @@ def _tenant_data(seed: int):
     return values, keys
 
 
-def _grouped_oracle(values, keys):
-    """Every (tenant, level) cell from one sort of (key, value) pairs on the
-    card: the exact_target_rank(n_g, q)-th value of tenant g."""
+def _grouped_oracle(values, keys, num_groups=GROUPS, qs=GROUP_QS,
+                    rank=None):
+    """Every (group, level) cell from one sort of (key, value) pairs on the
+    card: the ``rank(n_g, q)``-th value of group g (``exact_target_rank``
+    unless given)."""
     from repro_torch.core import local_ops
     from repro_torch.kernels import ref
+    rank = rank or local_ops.exact_target_rank
     comp = (keys.reshape(-1).to(torch.int64) << 32) | ref.u32_as_int64(
         ref.to_sortable_u32(values.reshape(-1)))
     srt = torch.sort(comp).values
     del comp
-    n_g = torch.bincount(keys.reshape(-1), minlength=GROUPS).tolist()
+    n_g = torch.bincount(keys.reshape(-1), minlength=num_groups).tolist()
     start, idx = 0, []
-    for g in range(GROUPS):
-        idx += [start + local_ops.exact_target_rank(n_g[g], q) - 1
-                for q in GROUP_QS]
+    for g in range(num_groups):
+        idx += [start + rank(n_g[g], q) - 1 for q in qs]
         start += n_g[g]
     low = srt[torch.tensor(idx, device="cuda")].to(torch.int32)
     del srt
     torch.cuda.empty_cache()
     return ref.from_sortable_u32(low.view(torch.uint32), torch.float32).reshape(
-        GROUPS, len(GROUP_QS)), n_g
+        num_groups, len(qs)), n_g
 
 
 def grouped_path(seed: int):
@@ -958,7 +990,464 @@ def grouped_path(seed: int):
 
 
 # ---------------------------------------------------------------------------
-# 7. the sharded path: a world of W ranks, each a process, on the one card
+# 7. the streaming service
+# ---------------------------------------------------------------------------
+
+
+def _kernel_events(fn) -> dict:
+    """CUDA kernels and copies one call of fn launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "memcpy": 0, "memset": 0, "by_name": {}}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or "Buffer" in evt.name:
+            continue
+        kind = ("memcpy" if "Memcpy" in evt.name else
+                "memset" if "Memset" in evt.name else "kernels")
+        out[kind] += 1
+        name = evt.name.replace("void ", "").split("<")[0].split("(")[0]
+        out["by_name"][name] = out["by_name"].get(name, 0) + 1
+    return out
+
+
+def _counted(fn, expect_sorts=None, expect=None) -> tuple:
+    """One call of fn with every count zeroed just before it: ``(result,
+    {"launches", "sketch_sorts", "hbm_passes"})``; raises if a kernel of
+    ``expect`` did not launch its expected number of times, or the sketch
+    sorts differ from ``expect_sorts``."""
+    import repro_torch.kernels as K
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import ops
+    K.reset_launches()
+    sk.reset_sketch_sorts()
+    ops.reset_hbm_passes()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {"launches": {k: c for k, c in K.launches().items() if c},
+              "sketch_sorts": sk.sketch_sorts(),
+              "hbm_passes": ops.hbm_passes()}
+    for name, n in (expect or {}).items():
+        if counts["launches"].get(name, 0) != n:
+            raise AssertionError(f"{name} launched {counts['launches']}, "
+                                 f"expected {n}")
+    if expect_sorts is not None and counts["sketch_sorts"] != expect_sorts:
+        raise AssertionError(f"{counts['sketch_sorts']} sketch sorts, "
+                             f"expected {expect_sorts}")
+    return out, counts
+
+
+def _check_bits(what: str, got, want) -> None:
+    if not torch.equal(_bits(got.reshape(-1)), _bits(want.reshape(-1))):
+        raise AssertionError(f"{what}: {got} != oracle {want}")
+
+
+def _warm_phases(svc, name: str, q: float) -> dict:
+    """The phases of one warm ``exact``, the service's own calls in turn."""
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantile_service as qsvc
+    slot = svc._names[name]
+    n = svc._counts[slot]
+    k = local_ops.target_rank(n, q)
+    state = svc._row_state(slot)
+    chunks = svc._chunks_for(slot)
+    phases = {}
+    (pivot, bound), phases["pivot"] = _sync_time(
+        lambda: (sk.sketch_query_rank(state, k),
+                 int(sk.sketch_rank_bound(state))))
+    cap = min(n, qsvc._round_up(bound + 2, 128))
+    outs, phases["count_extract"] = _sync_time(
+        lambda: [ops.fused_count_extract(c, pivot, min(c.shape[0], cap))
+                 for c in chunks])
+
+    def resolve():
+        total = torch.stack([o[0] for o in outs]).sum(0, dtype=torch.int32)
+        return local_ops.resolve(
+            pivot, torch.tensor(k, dtype=torch.int32, device="cuda"),
+            total[0], total[1], torch.cat([o[1] for o in outs]),
+            torch.cat([o[2] for o in outs]), cap)
+
+    _, phases["resolve"] = _sync_time(resolve)
+    _, phases["cold_sketch"] = _sync_time(lambda: svc._cold_pivot(chunks, k))
+    return {"phases_s": phases, "cap": cap, "rank_bound": bound,
+            "chunks": len(chunks)}
+
+
+def _all_phases(svc, qs) -> dict:
+    """The phases of one fused ``exact_all``: pivots from the table, the
+    count+extract over the ring, the resolve."""
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.launch import quantile_service as qsvc
+    active = [(n, s) for n, s in sorted(svc._names.items())
+              if svc._counts[s] > 0]
+    G, Q = len(active), len(qs)
+    slots = [s for _, s in active]
+    gid_of_slot = {s: g for g, s in enumerate(slots)}
+    counts = [svc._counts[s] for s in slots]
+    phases = {}
+
+    def pivots():
+        rows = qsvc._gather_rows(svc._stacked, svc._slot_index(slots))
+        kmat = torch.tensor([[local_ops.target_rank(c, q) for q in qs]
+                             for c in counts], dtype=torch.int32,
+                            device="cuda")
+        return (kmat, sk.sketch_query_rank_batch(rows, kmat),
+                int(sk.sketch_rank_bound(rows).max()))
+
+    (kmat, piv, bound), phases["pivot"] = _sync_time(pivots)
+    cap = min(max(counts), qsvc._round_up(bound + 2, 128))
+    _, phases["count_extract_resolve"] = _sync_time(
+        lambda: svc._segmented_resolve(lambda: svc._ring_pairs(gid_of_slot),
+                                       kmat, piv, cap, G, Q, max(counts)))
+    return {"phases_s": phases, "cap": cap, "rank_bound": bound,
+            "records": len(svc._ring)}
+
+
+def service_path(x, want, want_multi, gk_median_s: float, tally) -> tuple:
+    """One stream at the paper's size: the main path's array ingested as
+    120 ticks of one 2^23-value row, eps = 1e-4 (budget 65,536), fused.
+    Warm and cold ``exact(0.5)``, ``exact_all`` over the 5 levels and
+    ``approx``, each against the sort oracles bit for bit, then a snapshot
+    round trip whose warm ``exact`` replays no history."""
+    import tempfile
+    from repro_torch.checkpoint import (restore_service_snapshot,
+                                        save_service_snapshot)
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import (fused_select as fs, ref,
+                                     segmented_select as ss)
+    from repro_torch.launch import QuantileService
+    from repro_torch.launch import quantile_service as qsvc
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svc = QuantileService(eps=EPS, fused=True)
+    qsvc.reset_ingest_dispatches()
+    sk.reset_sketch_sorts()
+
+    def ingest():
+        for i in range(P):
+            svc.ingest("main", x[i])
+
+    _, ingest_counts = _counted(ingest, expect_sorts=P)
+    ingest_s = time.perf_counter() - t_phase
+    ingest_counts["ingest_dispatches"] = qsvc.ingest_dispatches()
+    scratch = QuantileService(eps=EPS, fused=True)
+    scratch.ingest("main", x[0])
+    tick_events = _kernel_events(lambda: scratch.ingest("main", x[1]))
+    del scratch
+
+    queries = {
+        "exact_warm": (lambda: svc.exact("main", 0.5), want, 0,
+                       {"fused_select": P}),
+        "exact_cold": (lambda: svc.exact("main", 0.5, warm=False), want, P,
+                       {"fused_select": P}),
+        "exact_all": (lambda: svc.exact_all(QS)["main"], want_multi, 0,
+                      {"segmented_select": P}),
+        "approx": (lambda: svc.approx("main", 0.5), None, 0, {}),
+    }
+    per_query, medians = {}, {}
+    for name, (fn, oracle, sorts, expect) in queries.items():
+        got, per_query[name] = _counted(fn, sorts, expect)
+        if oracle is not None:
+            _check_bits(f"service {name}", got, oracle)
+        again, medians[name + "_median_s"] = _median_s(fn)
+        if not torch.equal(_bits(again), _bits(got)):
+            raise AssertionError(f"service {name} changed between runs")
+    warm = _warm_phases(svc, "main", 0.5)
+    all_ = _all_phases(svc, QS)
+    profiles = {"exact_warm": _profile(queries["exact_warm"][0]),
+                "exact_all": _profile(queries["exact_all"][0])}
+    peak = torch.cuda.max_memory_allocated()
+
+    # the kernels at the service's shapes against their plain versions
+    slot = svc._names["main"]
+    rec = svc._ring[0]
+    chunk = rec.data[0:1, :int(rec.n_valid[0])]
+    pivot = sk.sketch_query_rank(svc._row_state(slot), N_I)
+    cap = min(chunk.shape[1], warm["cap"])
+    tally.add("fused_select", _same_bits(fs.fused_select(chunk, pivot, cap),
+                                         ref.fused_select_ref(chunk, pivot,
+                                                              cap)),
+              f"service chunk 1 x {chunk.shape[1]} cap={cap}")
+    chunk_ms = _event_ms(lambda: fs.fused_select(chunk, pivot, cap), 5)
+    chunk_bound_ms = (chunk.numel() * 4 + 3 * 4 + 2 * cap * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    keys = torch.zeros_like(chunk, dtype=torch.int32)
+    piv = sk.sketch_query_rank_batch(
+        qsvc._gather_rows(svc._stacked, svc._slot_index([slot])),
+        torch.tensor([[max(1, int(q * P * N_I)) for q in QS]],
+                     dtype=torch.int32, device="cuda"))
+    cap = min(chunk.shape[1], all_["cap"])
+    tally.add("segmented_select",
+              _same_bits(ss.segmented_select(chunk, keys, piv, cap),
+                         ref.segmented_select_ref(chunk, keys, piv, cap)),
+              f"service record 1 x {chunk.shape[1]} G*Q=5 cap={cap}")
+
+    # snapshot, restore, warm exact with no replay
+    with tempfile.TemporaryDirectory() as tmp:
+        _, save_s = _sync_time(lambda: save_service_snapshot(tmp, 1, svc))
+        restored, restore_s = _sync_time(lambda: restore_service_snapshot(tmp))
+        got, restored_counts = _counted(lambda: restored.exact("main", 0.5),
+                                        0, {"fused_select": P})
+        _check_bits("restored exact", got, want)
+    del restored, svc
+    torch.cuda.empty_cache()
+    return {
+        "n": P * N_I, "ticks": P, "eps": EPS, "budget": sk.sketch_budget(EPS),
+        "ingest_s": ingest_s, "ingest_counts": ingest_counts,
+        "ingest_tick_device_events": tick_events, **medians,
+        "gk_select_median_s": gk_median_s,
+        "per_query": per_query, "warm_exact": warm, "exact_all": all_,
+        "fused_select_one_chunk_ms": chunk_ms,
+        "fused_select_one_chunk_bound_ms": chunk_bound_ms,
+        "snapshot_save_s": save_s, "snapshot_restore_s": restore_s,
+        "restored_exact": restored_counts,
+        "peak_memory_bytes": peak, "allocated_before_bytes": base,
+        "profiles": profiles,
+        "wall_s": time.perf_counter() - t_phase}, per_query
+
+
+def _tenant_ticks(seed: int):
+    """TENANTS streams x TENANT_TICKS ticks of telemetry: each (tick,
+    stream) batch length from 1..TENANT_LEN by ``seed``, values
+    lognormal(1.0, 0.6) x (1 + 0.3 (stream mod 32)) in f32, made on the card
+    and handed to the service as host arrays.  Returns the host batches per
+    tick and all values with their stream ids on the card."""
+    import numpy as np
+    lengths = np.random.default_rng(seed).integers(
+        1, TENANT_LEN + 1, size=(TENANT_TICKS, TENANTS))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    ticks, vals, sids = [], [], []
+    for t in range(TENANT_TICKS):
+        lens = torch.as_tensor(lengths[t], device="cuda")
+        sid = torch.repeat_interleave(
+            torch.arange(TENANTS, device="cuda", dtype=torch.int32), lens)
+        z = torch.randn(sid.numel(), generator=gen, device="cuda")
+        v = torch.exp(z * 0.6 + 1.0) * (1.0 + 0.3 * (sid % 32))
+        ticks.append(np.split(v.cpu().numpy(), np.cumsum(lengths[t])[:-1]))
+        vals.append(v)
+        sids.append(sid)
+    return ticks, torch.cat(vals), torch.cat(sids), lengths
+
+
+def tenants_path(seed: int, tally) -> tuple:
+    """Multi-tenant telemetry: TENANTS streams over TENANT_TICKS host ticks,
+    eps = 0.01 (budget 1600).  ``exact_all`` fused (segmented_select) and
+    row-wise, warm ``exact`` on 8 streams, 4 worker buffers folded in one
+    ``fold_many``, and a windowed service (8 ticks, 4 sub-windows): every
+    exact answer against a sort of the raw values, bit for bit;
+    ``approx_decayed`` against the CPU port on the same state."""
+    import numpy as np
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.kernels import (fused_select as fs, ref,
+                                     segmented_select as ss)
+    from repro_torch.launch import QuantileService, Window
+    from repro_torch.launch import quantile_service as qsvc
+
+    t_phase = time.perf_counter()
+    ticks, values, sids, lengths = _tenant_ticks(seed)
+    want, _ = _grouped_oracle(values, sids, TENANTS, TENANT_QS,
+                              local_ops.target_rank)
+    del values, sids
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t_phase
+    names = [f"tenant{i:04d}" for i in range(TENANTS)]
+    probe = sorted({s for s in (0, 1, 7, 31, 100, 1000, TENANTS // 2 - 1,
+                                TENANTS - 1) if s < TENANTS})  # 8 streams
+
+    # launches per ingest tick at S = 1 and S = TENANTS, the same lengths
+    scratch = QuantileService(eps=TENANT_EPS, fused=True)
+    scratch.ingest_batch(names, ticks[0])
+    one = [np.resize(ticks[0][0], TENANT_LEN)]
+    one_dev = [torch.from_numpy(one[0]).cuda()]
+    many_dev = [torch.from_numpy(b).cuda() for b in ticks[2]]
+    tick_events = {
+        "host_S1": _kernel_events(lambda: scratch.ingest_batch(names[:1],
+                                                               one)),
+        f"host_S{TENANTS}": _kernel_events(
+            lambda: scratch.ingest_batch(names, ticks[1])),
+        "device_S1": _kernel_events(lambda: scratch.ingest_batch(
+            names[:1], one_dev)),
+        f"device_S{TENANTS}": _kernel_events(lambda: scratch.ingest_batch(
+            names, many_dev))}
+    del scratch, one_dev, many_dev
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc = QuantileService(eps=TENANT_EPS, fused=True)
+    qsvc.reset_ingest_dispatches()
+
+    def ingest():
+        for t in range(TENANT_TICKS):
+            svc.ingest_batch(names, ticks[t])
+
+    (_, ingest_counts), ingest_s = _sync_time(
+        lambda: _counted(ingest, expect_sorts=TENANT_TICKS))
+    ingest_counts["ingest_dispatches"] = qsvc.ingest_dispatches()
+    per_launch = max(1, ss.MAX_PIVOTS // len(TENANT_QS))
+    seg_launches = TENANT_TICKS * -(-TENANTS // per_launch)
+
+    def answers(out):
+        return torch.stack([out[n] for n in names])
+
+    def all_fused():
+        svc.fused = True
+        return answers(svc.exact_all(TENANT_QS))
+
+    def all_rowwise():
+        svc.fused = False
+        try:
+            return answers(svc.exact_all(TENANT_QS))
+        finally:
+            svc.fused = True
+
+    def warm():
+        return torch.stack([svc.exact(names[s], q) for s in probe
+                            for q in TENANT_QS])
+
+    want_probe = want[probe].reshape(-1)
+    queries = {"exact_all_fused": (all_fused, want,
+                                   {"segmented_select": seg_launches}),
+               "exact_all_rowwise": (all_rowwise, want, {}),
+               "exact_warm_8_streams": (
+                   warm, want_probe,
+                   {"fused_select": TENANT_TICKS * len(probe) *
+                    len(TENANT_QS)})}
+    per_query, medians = {}, {}
+    for name, (fn, oracle, expect) in queries.items():
+        got, per_query[name] = _counted(fn, 0, expect)
+        if name == "exact_all_rowwise" and per_query[name]["launches"]:
+            raise AssertionError(f"the row-wise route launched "
+                                 f"{per_query[name]['launches']}")
+        _check_bits(f"tenants {name}", got, oracle)
+        _, medians[name + "_median_s"] = _median_s(fn)
+    all_ = _all_phases(svc, TENANT_QS)
+    profiles = {"exact_all_fused": _profile(all_fused)}
+    peak = torch.cuda.max_memory_allocated()
+    stats = svc.memory_stats()
+
+    # the kernels at the service's shapes against their plain versions:
+    # every chunk of 4 streams, and a tick record's first 256 rows at one
+    # launch's G*Q pivots
+    for s in probe[:4]:
+        slot = svc._names[names[s]]
+        pivot = sk.sketch_query_rank(svc._row_state(slot), 1 + int(
+            0.5 * svc._counts[slot]))
+        cap = min(svc._counts[slot], qsvc._round_up(
+            int(sk.sketch_rank_bound(svc._row_state(slot))) + 2, 128))
+        for c in svc._chunks_for(slot):
+            c = c.reshape(1, -1)
+            cc = min(c.shape[1], cap)
+            tally.add("fused_select",
+                      _same_bits(fs.fused_select(c, pivot, cc),
+                                 ref.fused_select_ref(c, pivot, cc)),
+                      f"tenant chunk 1 x {c.shape[1]} cap={cc}")
+    rows = 256
+    rec = svc._ring[0]
+    gid_of_slot = {svc._names[n]: g for g, n in enumerate(sorted(names))}
+    v, k = next(svc._ring_pairs(gid_of_slot))
+    v_rec, k_rec = v.reshape(1, -1), k.reshape(1, -1)
+    v = v.reshape(rec.data.shape)[:rows].reshape(1, -1)
+    k = k.reshape(rec.data.shape)[:rows].reshape(1, -1)
+    table = qsvc._gather_rows(svc._stacked, svc._slot_index(
+        [svc._names[n] for n in sorted(names)]))
+    kmat = torch.tensor([[local_ops.target_rank(svc._counts[svc._names[n]], q)
+                          for q in TENANT_QS] for n in sorted(names)],
+                        dtype=torch.int32, device="cuda")
+    grid = sk.sketch_query_rank_batch(table, kmat)
+    cap = min(v.shape[1], all_["cap"])
+    # one launch of a whole record at one launch's pivots, alone
+    record_ms = _event_ms(lambda: ss.segmented_select(
+        v_rec, k_rec, grid[:per_launch], cap), 3)
+    record_bound_ms = (v_rec.numel() * 8 + grid[:per_launch].numel() * (
+        3 * 4 + 2 * cap * 4)) / HBM_BYTES_PER_S * 1e3
+    del v_rec, k_rec
+    for g0 in range(0, TENANTS, per_launch):
+        kk = k - g0
+        pv = grid[g0:g0 + per_launch]
+        tally.add("segmented_select",
+                  _same_bits(ss.segmented_select(v, kk, pv, cap),
+                             ref.segmented_select_ref(v, kk, pv, cap)),
+                  f"tenant record {rows} x {rec.data.shape[1]} G*Q="
+                  f"{pv.numel()} cap={cap}")
+    serial = all_fused()
+    del svc, table, grid, v, k
+    torch.cuda.empty_cache()
+
+    # the same ticks staged into 4 worker buffers, folded in one call
+    folded = QuantileService(eps=TENANT_EPS, fused=True)
+    bufs = [folded.local_buffer() for _ in range(4)]
+    (_, fold_s) = _sync_time(lambda: [
+        bufs[t % 4].stage(names[i], ticks[t][i])
+        for t in range(TENANT_TICKS) for i in range(TENANTS)])
+    _, fold_many_s = _sync_time(lambda: folded.fold_many(bufs))
+    got = answers(folded.exact_all(TENANT_QS))
+    _check_bits("fold_many exact_all", got, serial)
+    del folded, bufs
+
+    # a windowed service over the same ticks
+    win = QuantileService(eps=TENANT_EPS, fused=True, window_ticks=8,
+                          window_subs=4)
+    for t in range(TENANT_TICKS):
+        win.ingest_batch(names, ticks[t])
+    wstats = win.memory_stats()
+    if wstats["ring_records"] > 8:
+        raise AssertionError(f"windowed ring holds {wstats['ring_records']}")
+    checked = 0
+    for s in probe:
+        hist = [ticks[t][s] for t in range(TENANT_TICKS)]
+        # a values window inside what the ring retains
+        n_w = min(2 * TENANT_LEN, sum(h.size for h in hist[-8:]) - 1)
+        for w, raw in ((Window(ticks=8), np.concatenate(hist[-8:])),
+                       (Window(values=n_w), np.concatenate(hist)[-n_w:])):
+            srt = np.sort(raw)
+            for q in TENANT_QS:
+                got = win.windowed(names[s], q, window=w)
+                ref_v = torch.from_numpy(
+                    srt[local_ops.target_rank(srt.size, q) - 1:][:1]).cuda()
+                _check_bits(f"windowed {names[s]} {w} {q}", got, ref_v)
+                checked += 1
+    leaves, extra = win.snapshot()
+    cpu = QuantileService.from_snapshot(leaves, extra, device="cpu")
+    decayed_equal = 0
+    for s in probe:
+        for q in TENANT_QS:
+            a = win.approx_decayed(names[s], q, halflife=4.0)
+            b = cpu.approx_decayed(names[s], q, halflife=4.0)
+            if not torch.equal(_bits(a.cpu()), _bits(b)):
+                raise AssertionError(f"approx_decayed {names[s]} {q}: card "
+                                     f"{a} != CPU {b}")
+            decayed_equal += 1
+    _, win_median = _median_s(lambda: win.windowed(names[0], 0.99,
+                                                   window=Window(ticks=8)))
+    del win, cpu, leaves
+    torch.cuda.empty_cache()
+    return {
+        "streams": TENANTS, "ticks": TENANT_TICKS, "eps": TENANT_EPS,
+        "budget": sk.sketch_budget(TENANT_EPS),
+        "values": int(lengths.sum()), "setup_s": setup_s,
+        "ingest_s": ingest_s, "ingest_counts": ingest_counts,
+        "ingest_tick_device_events": tick_events,
+        "segmented_launches_per_record": -(-TENANTS // per_launch),
+        "segmented_select_one_record_ms": record_ms,
+        "segmented_select_one_record_bound_ms": record_bound_ms,
+        **medians, "per_query": per_query, "exact_all": all_,
+        "stage_4_buffers_s": fold_s, "fold_many_s": fold_many_s,
+        "windowed_checked": checked, "windowed_median_s": win_median,
+        "decayed_equal_to_cpu": decayed_equal, "window_memory": wstats,
+        "memory": stats, "peak_memory_bytes": peak, "profiles": profiles,
+        "wall_s": time.perf_counter() - t_phase}, per_query
+
+
+# ---------------------------------------------------------------------------
+# 8. the sharded path: a world of W ranks, each a process, on the one card
 # ---------------------------------------------------------------------------
 
 
@@ -1334,6 +1823,7 @@ def main() -> int:
 
     result, (x, pivots, want, want_multi, k) = main_path(args.seed)
     kernels = result.pop("kernels")
+    gk_median_s = result["gk_select_median_s"]
     print(json.dumps({"main_path": result}), flush=True)
     result, rows = counting_path(x, pivots, want, k)
     kernels += rows
@@ -1343,7 +1833,19 @@ def main() -> int:
     result, rows, (values, keys, want_grouped) = grouped_path(args.seed)
     kernels += rows
     print(json.dumps({"grouped_path": result}), flush=True)
-    x = _main_data(args.seed)    # the same array again, for the sharded path
+    x = _main_data(args.seed)    # the same array again, for the last paths
+    result, service_launches = service_path(x, want, want_multi, gk_median_s,
+                                            tally)
+    print(json.dumps({"service_path": result}), flush=True)
+    result, tenant_launches = tenants_path(args.seed, tally)
+    print(json.dumps({"tenants_path": result}), flush=True)
+    for row in kernels:
+        row["service_launches_per_query"] = {
+            f"{path}.{query}": counts["launches"][row["name"]]
+            for path, per_query in (("service_path", service_launches),
+                                    ("tenants_path", tenant_launches))
+            for query, counts in per_query.items()
+            if row["name"] in counts["launches"]}
     result = sharded_path(x, {"single": want, "multi": want_multi,
                               "grouped": want_grouped}, values, keys, tally)
     print(json.dumps({"sharded_path": result}), flush=True)

@@ -14,13 +14,17 @@ kernels  the Hopper kernels, their plain PyTorch versions, the device
 Entry points run where their tensor lives; those that take host data take
 ``device=`` (default ``"cuda"``, which raises without a card).
 """
-from . import core, kernels
+from . import checkpoint, core, kernels, launch
 from .core import (exact_quantile, exact_quantile_rank, gk_select,
                    gk_select_multi, gk_select_grouped, full_sort_quantile,
                    approx_quantile, distributed_quantile,
                    distributed_quantile_multi, distributed_quantile_grouped)
+from .launch import QuantileService, Window
+from .checkpoint import save_service_snapshot, restore_service_snapshot
 
-__all__ = ["core", "kernels", "exact_quantile", "exact_quantile_rank",
-           "gk_select", "gk_select_multi", "gk_select_grouped",
+__all__ = ["checkpoint", "core", "kernels", "launch", "exact_quantile",
+           "exact_quantile_rank", "gk_select", "gk_select_multi", "gk_select_grouped",
            "full_sort_quantile", "approx_quantile", "distributed_quantile",
-           "distributed_quantile_multi", "distributed_quantile_grouped"]
+           "distributed_quantile_multi", "distributed_quantile_grouped",
+           "QuantileService", "Window", "save_service_snapshot",
+           "restore_service_snapshot"]

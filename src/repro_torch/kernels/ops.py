@@ -8,7 +8,8 @@
 ``fused_count_extract_multi``  the same against Q pivots.
 ``segmented_count_extract``    the grouped engine's round: counts and both
                                bands for every (group, level) of a (G, Q)
-                               pivot grid, restricted to each group's keys.
+                               pivot grid, restricted to each group's keys
+                               (one launch per ``MAX_PIVOTS`` pivots).
 ``byte_histogram``             256-bin histogram of one byte of the
                                sortable-u32 key within a prefix group.
 ``radix_select_kth``           exact k-th smallest in 4 byte-histogram passes,
@@ -32,6 +33,8 @@ implementation really makes:
                                        per slice of groups that fits in
                                        shared memory (1 at G*Q = 32*2) plus
                                        the compaction pass; 3*G*Q plain;
+                                       plus 1 for each launch's key shift
+                                       past the first 4096 pivots;
   radix_select_kth                     4 (the kernel forms the keys from x),
                                        5 plain (the key transform is a pass);
   radix_select_kth_bitwise             32 kernel, 33 plain.
@@ -47,6 +50,7 @@ from .fused_select import PASSES_PER_LAUNCH, RADIX_SHIFTS, launches_for
 from .partition_count import BISECT_STEPS
 from .ref import (total_order_key, from_total_order_key, to_sortable_u32,
                   from_sortable_u32)
+from . import segmented_select as _ss
 from .segmented_select import reads_per_launch
 
 # Lock-guarded so that callers on several threads never drop a tick.
@@ -122,10 +126,22 @@ def segmented_count_extract(values: torch.Tensor, keys: torch.Tensor,
     drop the P axis."""
     vb, flat = _batched(values)
     kb, _ = _batched(keys)
-    out, route = dispatch.run_segmented_select(vb, kb, pivots, cap)
-    G, Q = out[0].shape[1:3]
-    _tick(reads_per_launch(vb.dtype, G, Q) if route == dispatch.KERNEL
-          else 3 * G * Q)
+    pivots = torch.as_tensor(pivots, dtype=vb.dtype, device=vb.device)
+    G, Q = pivots.shape
+    per = max(1, _ss.MAX_PIVOTS // Q)
+    parts = []
+    for g0 in range(0, G, per):
+        # a grid wider than one launch takes goes in slices of groups; a
+        # slice's keys are shifted by its first group (one more pass over
+        # the keys), so that the other groups' keys fall outside [0, G_s)
+        out, route = dispatch.run_segmented_select(
+            vb, kb - g0 if g0 else kb, pivots[g0:g0 + per], cap)
+        G_s = out[0].shape[1]
+        _tick((reads_per_launch(vb.dtype, G_s, Q) if route == dispatch.KERNEL
+               else 3 * G_s * Q) + (g0 > 0))
+        parts.append(out)
+    out = parts[0] if len(parts) == 1 else tuple(
+        torch.cat(t, dim=1) for t in zip(*parts))
     return tuple(t[0] for t in out) if flat else out
 
 

@@ -36,6 +36,9 @@ _SIGNATURES = {
 }
 
 LAUNCHES = {"segmented_select": 0}
+# G * Q pivots one launch takes: the compaction keeps 52 bytes of state per
+# pivot in shared memory (csrc MAX_PIVOTS, which ``ss_max_pivots`` reports)
+MAX_PIVOTS = 4096
 
 
 def _lib():

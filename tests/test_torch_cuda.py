@@ -266,3 +266,64 @@ def test_new_kernel_routes_count_their_reads(cuda):
     assert K.launches() == {"fused_select": 0, "fused_select_multi": 0,
                             "byte_histogram": 4, "partition_count": 33,
                             "band_count": 1, "segmented_select": 1}
+
+
+def _service_answers(device, dtype, fused):
+    """One scripted service sequence on ``device``: ragged ticks of host
+    and device batches, a dropped stream, warm and cold ``exact``,
+    ``exact_all``, ``grouped``, a windowed service's ``windowed`` and
+    ``approx_decayed``; the answers as raw bits."""
+    from repro_torch.launch import QuantileService, Window
+    rng = np.random.default_rng(9)
+
+    def batch(n):
+        if dtype == torch.int32:
+            return rng.integers(-40, 40, size=n).astype(np.int32)
+        v = rng.choice([-0.0, 0.0, 1.5, -1.5], size=n)
+        return np.where(rng.random(n) < 0.5, v,
+                        rng.normal(size=n)).astype(np.float32)
+
+    out = []
+    svc = QuantileService(eps=0.05, dtype=dtype, fused=fused, device=device)
+    win = QuantileService(eps=0.05, dtype=dtype, fused=fused, device=device,
+                          window_ticks=4, window_subs=2)
+    names = [f"s{i}" for i in range(6)]
+    for t in range(7):
+        lens = rng.integers(0, 3000, size=len(names))
+        data = [batch(int(n)) for n in lens]
+        if t % 2:
+            data = [torch.from_numpy(d).to(device) for d in data]
+        svc.ingest_batch(names, data)
+        win.ingest_batch(names, data)
+        if t == 3:
+            svc.drop_stream("s2")
+    for name in ("s0", "s2", "s5"):
+        for q in (0.01, 0.5, 0.99):
+            out += [svc.exact(name, q), svc.exact(name, q, warm=False),
+                    svc.approx(name, q), win.windowed(name, q, window=3),
+                    win.windowed(name, q, window=Window(values=2500)),
+                    win.approx_decayed(name, q, halflife=2.0)]
+    out += list(svc.exact_all((0.25, 0.5, 0.9)).values())
+    keys = torch.from_numpy(rng.integers(-1, 6, size=5000).astype(
+        np.int32)).to(device)
+    svc.ingest_grouped("g", torch.from_numpy(batch(5000)).to(device), keys)
+    svc.ingest_grouped("g", batch(77), np.arange(77, dtype=np.int32) % 6)
+    out.append(svc.grouped("g", (0.5, 0.99), 6))
+    return [_bits(t.reshape(-1).to(dtype)) for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", (False, True))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_service_on_card_matches_cpu(cuda, dtype, fused):
+    """The card's service answers equal the CPU port's, bit for bit, and
+    the fused route launches both service kernels."""
+    K.reset_launches()
+    got = _service_answers(cuda, dtype, fused)
+    launched = K.launches()
+    assert got == _service_answers("cpu", dtype, fused)
+    if fused:
+        assert launched["fused_select"] > 0
+        assert launched["segmented_select"] > 0
+    else:
+        assert launched["fused_select"] == launched["segmented_select"] == 0

@@ -42,7 +42,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.kernels.fused_select, "
             "repro_torch.kernels.partition_count, "
             "repro_torch.kernels.band_count, "
-            "repro_torch.kernels.segmented_select, repro_torch.testing\n"
+            "repro_torch.kernels.segmented_select, repro_torch.testing, "
+            "repro_torch.launch.quantile_service, "
+            "repro_torch.checkpoint.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
@@ -75,7 +77,8 @@ def test_no_source_imports_jax_or_repro():
 def test_layout_mirrors_the_jax_package():
     for rel in ("core/local_ops.py", "core/sketch.py", "core/select.py",
                 "core/baselines.py", "core/engine.py", "core/grouped.py",
-                "core/distributed.py",
+                "core/distributed.py", "launch/quantile_service.py",
+                "checkpoint/checkpoint.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
                 "kernels/fused_select.py", "kernels/partition_count.py",
                 "kernels/band_count.py", "kernels/segmented_select.py",
@@ -86,8 +89,10 @@ def test_layout_mirrors_the_jax_package():
         assert os.path.exists(os.path.join(PKG, rel)), rel
     for name in repro_torch.__all__:
         assert hasattr(repro_torch, name), name
-    for name in repro_torch.core.__all__:
-        assert hasattr(repro_torch.core, name), name
+    for module in (repro_torch.core, repro_torch.launch,
+                   repro_torch.checkpoint):
+        for name in module.__all__:
+            assert hasattr(module, name), name
 
 
 def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
@@ -102,6 +107,17 @@ def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
             call()
         assert call(device="cpu").device.type == "cpu"
     assert float(repro_torch.exact_quantile(x, 0.5, device="cpu")) == 7.0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.QuantileService()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # "cuda" means the current card, as the tensors there report it
+    assert repro_torch.QuantileService().device == torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    svc = repro_torch.QuantileService(device="cpu")
+    svc.ingest("s", x)
+    assert svc.exact("s", 0.5).device.type == "cpu"
+    assert float(svc.exact("s", 0.5)) == 7.0
 
 
 def test_tensor_entry_points_run_where_the_tensor_lives():
