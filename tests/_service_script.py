@@ -74,18 +74,22 @@ TORCH = types.SimpleNamespace(
     kw={"device": "cpu"})
 
 
-def _values(dtype, n, seed, *, spread=True):
-    """n values with ties, both zeros and negative values."""
+def _values(dtype, n, seed):
+    """n values with ties, both zeros, negative values and the dtype's
+    extremes (its sentinels among them)."""
     rng = np.random.default_rng(seed)
     if dtype == "int32":
+        info = np.iinfo(np.int32)
         out = rng.integers(-50, 50, size=n)
-        if spread:
-            out[::5] = rng.integers(-10 ** 6, 10 ** 6, size=out[::5].size)
+        out[::5] = rng.integers(-10 ** 6, 10 ** 6, size=out[::5].size)
+        out[1::9] = info.min
+        out[4::11] = info.max
     else:
         table = np.array([-0.0, 0.0, 1.5, -1.5, 2.0, 0.0, -0.0])
         out = table[rng.integers(0, len(table), size=n)]
-        if spread:
-            out = np.where(rng.random(n) < 0.5, out, rng.normal(size=n) * 8)
+        out = np.where(rng.random(n) < 0.5, out, rng.normal(size=n) * 8)
+        out[2::13] = np.inf
+        out[6::17] = -np.inf
     return out.astype(_np_dtype(dtype))
 
 
