@@ -97,10 +97,35 @@
    times are of six ranks sharing one card, not of six cards.  The main
    path's array is freed before 6 and made again from ``--seed`` for 7 and
    8, so that 6's peak memory counts 6's data alone.
-9. Times each kernel at its path's shapes beside its bound, its plain
+9. Drives the serving path (``repro_torch.launch.serve``) on granite-8b at
+   its published width (36 layers, d_model 4096, 32 heads over 8 KV heads,
+   d_ff 14336, vocab 49152; 8.25 B bf16 weights from ``--seed``): 8
+   prompts of 512 tokens, 64 greedy tokens each, a KV cache of 576.
+   Prints decode after ``prefill(S)`` against ``prefill(S + 1)`` beside the
+   JAX test's 5e-2 of the logit scale, and checks that the decode is no
+   farther (at most 1.5 x) from an f32 evaluation of the same weights
+   than the prefill is; then ``generate`` alone,
+   with a fused ``StreamingCalibrator(q=0.999)`` and with a threaded one
+   (4 ingest workers), in turns, 5 rounds after a warm-up, the same
+   tokens each time; a plain (``fused=False``) calibrator takes the last
+   round's logits.  Each ``scale`` must equal a sort of
+   every observed |logit| (64 ticks of 8 x 49152) bit for bit, and the
+   fused ones must launch ``fused_select`` once per ring chunk (counts
+   zeroed just before each query).  One-shot: ``calibrate_int8_scale`` over
+   the K cache of every layer after ``prefill(S + 1)`` (unwritten slots
+   hold zeros) and ``calibrate_int8_scales(axis=-1)`` over the last layer's
+   K cache as 4608 x 1024 channels, each against its sort.  Prints prefill,
+   decode and tokens/s beside their bounds, calibration per step
+   synchronous and threaded, the scale queries' times and launches, peak
+   memory and torch.profiler top lists of one decode step and one warm
+   ``scale``; ``fused_select`` at the serve's chunk joins 2's tally.
+   Last, 8 prompts of 4096 tokens take the blockwise attention: the first
+   layer's, against the direct path, within 1e-5 of max |out| and within
+   its memory bound (one q block at a time), then the whole prefill.
+10. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
    one ``kernels`` JSON line with all six, each with its launches per
-   service query.
+   service query (the serve's ``scale`` queries among them).
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -109,6 +134,7 @@ beside it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -126,6 +152,11 @@ GROUPS, GROUP_QS = 32, (0.5, 0.99)
 TENANTS, TENANT_TICKS, TENANT_LEN = 4096, 16, 4096   # the tenants path
 TENANT_EPS, TENANT_QS = 0.01, (0.5, 0.99)
 WORLD = 6                          # ranks of the sharded phase, on one card
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
+SERVE_Q = 0.999
+SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (data sheet)
+F32_FLOPS_PER_S = 67e12            # H100 SXM float32, no tensor cores
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
 U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -1763,6 +1794,344 @@ def sharded_path(x, wants: dict, values, keys, tally: Tally) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. the serving path: a dense model's prefill and decode, calibrated
+# ---------------------------------------------------------------------------
+
+
+def _tapped_calibrator(**kw):
+    """A ``StreamingCalibrator`` that also keeps each observed logits
+    tensor (the oracle sorts them all afterwards)."""
+    from repro_torch.launch import StreamingCalibrator
+
+    class Tap(StreamingCalibrator):
+        def __init__(self):
+            super().__init__(SERVE_Q, device="cuda", **kw)
+            self.seen = []
+
+        def observe_many(self, named):
+            self.seen.append(named["logits"])
+            super().observe_many(named)
+
+    return Tap()
+
+
+def _scale_query(cal, expect_fused: bool) -> tuple:
+    """One ``scale`` with every count zeroed just before it; a fused
+    calibrator must launch ``fused_select`` once per ring chunk of the
+    stream and sort no sketch."""
+    svc = cal.service
+    cal.flush()
+    chunks = len(svc._chunks_for(svc._names["logits"]))
+    expect = {"fused_select": chunks} if expect_fused else None
+    got, counts = _counted(lambda: cal.scale("logits"), 0, expect)
+    if expect_fused and counts["launches"].get("fused_select", 0) < 1:
+        raise AssertionError("the warm scale launched no fused_select")
+    counts["ring_chunks"] = chunks
+    return got, counts
+
+
+def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
+    """Least time of one prefill at the card's peak rates: the bf16 matmuls
+    (every layer's weights at each of the B x S positions, the head at the
+    last one) at the bf16 rate, and the f32 attention scores and sums over
+    the cache (the direct path) at the f32 rate."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    layer = D * (NH + 2 * KV) * dh + NH * dh * D + 3 * D * F
+    matmul = 2 * L * layer * B * S + 2 * D * cfg.vocab * B
+    attention = 4 * L * B * NH * S * cache_len * dh
+    return matmul / BF16_FLOPS_PER_S + attention / F32_FLOPS_PER_S
+
+
+def _long_prompt(params, cfg, seed: int) -> dict:
+    """The blockwise attention at full width: SERVE_LONG_B prompts of
+    SERVE_LONG_PROMPT tokens, past ``q_block * kv_block * 2`` scores a
+    head.  The first layer's attention, blockwise against the direct path
+    on the first prompt (f32, at most 1e-5 of max |out|) and its live
+    memory at the whole batch, which must stay within the f32 copies of
+    its operands and eight kv steps' scores, as one q block at a time
+    gives; then the whole prefill, its time and peak memory."""
+    from repro_torch.models import layers, model
+
+    B, S = SERVE_LONG_B, SERVE_LONG_PROMPT
+    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if S * S <= cfg.attn_q_block * cfg.attn_kv_block * 2:
+        raise AssertionError("serve long prompt: not the blockwise path")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    x, pos = model._embed_inputs(params, {"tokens": toks})
+    p = params.blocks[0].p
+    h = layers.norm(x, p, cfg, "ln1")
+    q = layers.apply_rope((h @ p["wq"]).reshape(B, S, NH, dh), pos,
+                          cfg.rope_theta).float()
+    k = layers.apply_rope((h @ p["wk"]).reshape(B, S, KV, dh), pos,
+                          cfg.rope_theta).float()
+    v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
+    del x, h
+    kw = dict(window=cfg.swa_window, q_block=cfg.attn_q_block,
+              kv_block=cfg.attn_kv_block)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    blockwise = layers.attention(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    attn_live = torch.cuda.max_memory_allocated() - before
+    # k and v repeated to NH heads, the padded f32 q, k and v, and out
+    operands = 6 * q.numel() * 4
+    scores = B * NH * cfg.attn_q_block * cfg.attn_kv_block * 4
+    if attn_live > operands + 8 * scores:
+        raise AssertionError(f"serve long prompt: the blockwise attention "
+                             f"held {attn_live} bytes, past {operands} of "
+                             f"operands and 8 x {scores} of scores")
+    direct = layers.attention(q[:1], k[:1], v[:1], pos[:1], pos[:1],
+                              window=cfg.swa_window, q_block=S, kv_block=S)
+    err = float((blockwise[:1] - direct).abs().max() / direct.abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"serve long prompt: blockwise attention is "
+                             f"{err} of max |out| off the direct path")
+    del q, k, v, blockwise, direct
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (logits, cache), prefill_s = _sync_time(
+        lambda: model.prefill(params, {"tokens": toks}, cfg))
+    peak = torch.cuda.max_memory_allocated() - before
+    if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError("serve long prompt: bad logits")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    del logits, cache
+    torch.cuda.empty_cache()
+    return {"batch": B, "prompt_len": S, "attention_rel_err": err,
+            "attention_live_bytes": attn_live,
+            "attention_live_bound_bytes": operands + 8 * scores,
+            "prefill_s": prefill_s, "prefill_peak_above_weights_bytes": peak,
+            "kv_cache_bytes": cache_bytes}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@torch.no_grad()
+def _f32_logits(params, tokens, cfg) -> torch.Tensor:
+    """prefill's last logits for ``tokens`` with the same weights in f32:
+    each layer's weights are cast as it runs (no f32 copy of the model),
+    and every activation is f32."""
+    from repro_torch.models import layers, model
+
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    x, pos = model._embed_inputs(params, {"tokens": tokens})
+    x = x.float()
+    for block in params.blocks:
+        p = {name: w.float() for name, w in block.p.items()}
+        h, _ = layers.attn_block(p, layers.norm(x, p, f32, "ln1"), f32,
+                                 positions=pos)
+        x = x + h
+        x = x + layers.mlp_block(p, layers.norm(x, p, f32, "ln2"), f32)
+    top = {name: params.p[name].float() for name in params.p
+           if name != "embed"}
+    return (layers.norm(x[:, -1], top, f32, "final_norm")
+            @ top["head"]).float()
+
+
+def serve_path(seed: int, tally) -> tuple:
+    """granite-8b at its published width, weights from ``--seed``:
+    SERVE_B prompts of SERVE_PROMPT tokens, SERVE_GEN greedy tokens each,
+    with exact int8 calibration of the logits (streaming, fused, plain and
+    threaded) and of the K cache (one-shot, per tensor and per channel),
+    each scale equal bit for bit to a sort on the card."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.kernels import fused_select as fs, ref
+    from repro_torch.launch import StreamingCalibrator, serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE_ARCH)
+    B, S, G = SERVE_B, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prompts = tokens[:, :S]
+    at_s = torch.full((B,), S, dtype=torch.int32, device="cuda")
+
+    # decode after prefill(S) against prefill(S + 1) on the served bf16
+    # weights, and each of the two against the same weights in f32
+    params, init_s = _sync_time(lambda: model.init_params(cfg, seed,
+                                                          device="cuda"))
+    _, cache = model.prefill(params, {"tokens": prompts}, cfg, cache_len=S + G)
+    step, cache = model.decode_step(params, tokens[:, S:], cache, at_s, cfg)
+    full, kv = model.prefill(params, {"tokens": tokens}, cfg, cache_len=S + G)
+    if not (torch.isfinite(step).all() and torch.isfinite(full).all()):
+        raise AssertionError("serve: non-finite logits")
+    if step.shape != (B, cfg.vocab) or step.dtype != torch.float32:
+        raise AssertionError(f"serve: logits {tuple(step.shape)} {step.dtype}")
+    f32 = _f32_logits(params, tokens, cfg)
+    consistency = {"decode_vs_prefill": _rel_err(step, full),
+                   "decode_vs_f32": _rel_err(step, f32),
+                   "prefill_vs_f32": _rel_err(full, f32)}
+    consistency["decode_vs_prefill_within_5e-2"] = (
+        consistency["decode_vs_prefill"] <= 5e-2)
+    if not (consistency["decode_vs_f32"]
+            <= 1.5 * consistency["prefill_vs_f32"]):
+        raise AssertionError(f"serve: decode is {consistency['decode_vs_f32']}"
+                             f" of the logit scale off the f32 evaluation, "
+                             f"more than 1.5 x the prefill's "
+                             f"{consistency['prefill_vs_f32']}")
+    del step, full, f32
+    n_params = sum(w.numel() for w in params.parameters())
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    _, prefill_s = _median_s(lambda: model.prefill(
+        params, {"tokens": prompts}, cfg, cache_len=S + G))
+    profiles = {"decode_step": _profile(lambda: model.decode_step(
+        params, tokens[:, S:], cache, at_s, cfg))}
+    del cache
+    torch.cuda.empty_cache()
+
+    # generate alone, with a fused calibrator and with a threaded one, in
+    # turns (one warm-up round); each calibrated run gets a fresh
+    # calibrator, and the last round's are queried below
+    def run(cal=None):
+        return serve.generate(cfg, params, prompts, gen_len=G,
+                              calibrator=cal)
+
+    runs = {"alone": [], "sync": [], "threaded": [], "threaded_flush": []}
+    toks, cal, threaded = None, None, None
+    for _ in range(TIMED_RUNS + 1):
+        got, t = _sync_time(run)
+        runs["alone"].append(t)
+        if toks is not None and not torch.equal(got, toks):
+            raise AssertionError("serve: greedy tokens changed between runs")
+        toks = got
+        cal = _tapped_calibrator(fused=True)
+        got, t = _sync_time(lambda: run(cal))
+        runs["sync"].append(t)
+        if not torch.equal(got, toks):
+            raise AssertionError("serve: tokens changed with a calibrator")
+        if threaded is not None:
+            threaded.close()
+        threaded = StreamingCalibrator(SERVE_Q, fused=True, ingest_threads=4,
+                                       device="cuda")
+        got, t = _sync_time(lambda: run(threaded))
+        runs["threaded"].append(t)
+        runs["threaded_flush"].append(_sync_time(threaded.flush)[1])
+        if not torch.equal(got, toks):
+            raise AssertionError("serve: tokens changed with a threaded "
+                                 "calibrator")
+    runs = {k: v[1:] for k, v in runs.items()}
+    gen_s, gen_sync_s, gen_threaded_s, threaded_flush_s = (
+        statistics.median(runs[k]) for k in ("alone", "sync", "threaded",
+                                             "threaded_flush"))
+    plain = StreamingCalibrator(SERVE_Q, fused=False, device="cuda")
+    for logits in cal.seen:
+        plain.observe_many({"logits": logits})
+
+    # the streaming scales against a sort of every observed |logit|
+    observed = torch.cat([t.reshape(-1) for t in cal.seen]).abs()
+    n = observed.numel()
+    k = local_ops.target_rank(n, SERVE_Q)
+    want = torch.sort(observed).values[k - 1].clone()
+    del observed
+    per_query, scales = {}, {}
+    for name, c, fused in (("scale_fused", cal, True),
+                           ("scale_threaded", threaded, True),
+                           ("scale_plain", plain, False)):
+        if c.observed("logits") != n:
+            raise AssertionError(f"serve {name}: observed "
+                                 f"{c.observed('logits')} != {n}")
+        got, per_query[name] = _scale_query(c, fused)
+        _check_bits(f"serve {name}", got, want)
+        again, scales[name + "_median_s"] = _median_s(
+            lambda: c.scale("logits"))
+        _check_bits(f"serve {name} again", again, want)
+    approx, scales["approx_scale_median_s"] = _median_s(
+        lambda: cal.approx_scale("logits"))
+    warm = _warm_phases(cal.service, "logits", SERVE_Q)
+    profiles["scale_fused"] = _profile(lambda: cal.scale("logits"))
+
+    # fused_select at the serve's shapes against its plain version
+    svc = cal.service
+    slot = svc._names["logits"]
+    chunk = svc._chunks_for(slot)[0][None]
+    pivot = sk.sketch_query_rank(svc._row_state(slot), k)
+    cap = min(chunk.shape[1], warm["cap"])
+    tally.add("fused_select", _same_bits(fs.fused_select(chunk, pivot, cap),
+                                         ref.fused_select_ref(chunk, pivot,
+                                                              cap)),
+              f"serve chunk 1 x {chunk.shape[1]} cap={cap}")
+    for c in (cal, threaded, plain):
+        c.close()
+    if threaded.pool._fold_thread.is_alive():
+        raise AssertionError("serve: the ingest pool's fold thread lives on")
+
+    # one-shot: the K cache of every layer, and the last layer's channels
+    kc = kv["k"]
+    del kv
+    one_shot = {"k_cache_values": kc.numel()}
+    K.reset_launches()
+    got, one_shot["scale_median_s"] = _median_s(
+        lambda: serve.calibrate_int8_scale(kc))
+    one_shot["scale_launches"] = {a: b for a, b in K.launches().items() if b}
+    flat = kc.float().abs().reshape(-1)
+    _check_bits("calibrate_int8_scale", got,
+                torch.sort(flat).values[local_ops.target_rank(
+                    flat.numel(), SERVE_Q) - 1])
+    del flat
+    torch.cuda.empty_cache()
+    chans = kc[-1].reshape(B * (S + G), cfg.n_kv_heads * cfg.d_head)
+    _, one_shot["scales_first_s"] = _sync_time(
+        lambda: serve.calibrate_int8_scales(chans, axis=-1))
+    got, one_shot["scales_s"] = _sync_time(
+        lambda: serve.calibrate_int8_scales(chans, axis=-1))
+    one_shot["channels"], one_shot["values_per_channel"] = (chans.shape[1],
+                                                           chans.shape[0])
+    _check_bits("calibrate_int8_scales", got,
+                torch.sort(chans.float().abs(), dim=0).values[
+                    local_ops.target_rank(chans.shape[0], SERVE_Q) - 1])
+    peak = torch.cuda.max_memory_allocated()
+    del kc, chans, cal, threaded, plain
+    torch.cuda.empty_cache()
+    long_prompt = _long_prompt(params, cfg, seed)
+    del params
+    torch.cuda.empty_cache()
+
+    decode_s = (gen_s - prefill_s) / (G - 1)
+    steps = G                                   # the prefill's and 63 decodes'
+    return {
+        "arch": SERVE_ARCH, "params": n_params, "weight_bytes": weight_bytes,
+        "batch": B, "prompt_len": S, "gen_len": G, "cache_len": S + G,
+        "kv_cache_bytes": cache_bytes, "init_s": init_s,
+        "consistency_rel_err": consistency,
+        "prefill_median_s": prefill_s,
+        "prefill_bound_s": _prefill_bound_s(cfg, B, S, S + G),
+        "generate_median_s": gen_s, "generate_runs_s": runs,
+        "decode_s_per_step": decode_s,
+        "decode_bound_s_per_step": (weight_bytes + cache_bytes)
+        / HBM_BYTES_PER_S,
+        "tokens_per_s": B * G / gen_s,
+        "generate_calibrated_sync_median_s": gen_sync_s,
+        "generate_calibrated_threaded_median_s": gen_threaded_s,
+        "threaded_flush_after_median_s": threaded_flush_s,
+        "calibration_s_per_step_sync": (gen_sync_s - gen_s) / steps,
+        "calibration_s_per_step_threaded": (gen_threaded_s - gen_s) / steps,
+        "observed_values": n, "q": SERVE_Q, "scale": float(want),
+        "approx_scale": float(approx), **scales, "per_query": per_query,
+        "warm_scale": warm, "one_shot": one_shot,
+        "peak_memory_bytes": peak, "allocated_before_bytes": base,
+        "long_prompt": long_prompt, "profiles": profiles,
+        "wall_s": time.perf_counter() - t_phase,
+    }, per_query
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all() -> None:
@@ -1849,13 +2218,20 @@ def main() -> int:
     result = sharded_path(x, {"single": want, "multi": want_multi,
                               "grouped": want_grouped}, values, keys, tally)
     print(json.dumps({"sharded_path": result}), flush=True)
+    del x, values, keys
+    torch.cuda.empty_cache()
+    result, serve_launches = serve_path(args.seed, tally)
+    print(json.dumps({"serve_path": result}), flush=True)
+    for row in kernels:
+        row["service_launches_per_query"].update({
+            f"serve_path.{query}": counts["launches"][row["name"]]
+            for query, counts in serve_launches.items()
+            if row["name"] in counts["launches"]})
     parity = tally.result()
     for name, (p, t) in parity.items():
         if p != t:
             raise AssertionError(f"{name}: {t - p} of {t} cases differ from "
                                  f"the plain version")
-    del x, values, keys
-    torch.cuda.empty_cache()
     for row in kernels:
         row["parity_cases"] = "{}/{}".format(*parity[row["name"]])
 

@@ -1,0 +1,10 @@
+"""StableLM-2 1.6B — 24L dense, LayerNorm+bias, MHA
+[hf:stabilityai/stablelm-2-1_6b]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    n_layers=24, d_model=2048, n_heads=32, n_kv_heads=32, d_head=64,
+    d_ff=5632, vocab=100352,
+    use_layernorm=True, mlp_type="swiglu",
+)

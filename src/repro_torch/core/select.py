@@ -107,16 +107,23 @@ def gk_select_multi(parts: torch.Tensor, qs: tuple, *, eps: float = 0.01,
     return torch.stack(out)
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``"cuda"`` without a card raises:
+    pass ``device="cpu"`` to run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def as_device_tensor(x, device="cuda") -> torch.Tensor:
     """A tensor as it is, or host data (numpy, incl. ml_dtypes bfloat16, or
     a sequence) moved to ``device``.  ``device="cuda"`` without a card
     raises: pass ``device="cpu"`` to run on the CPU."""
     if isinstance(x, torch.Tensor):
         return x
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
+    device = require_device(device)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(

@@ -140,8 +140,12 @@ def _high(dtype, device) -> torch.Tensor:
     return _sentinels(dtype, device)[1]
 
 
-def sketch_init(budget: int, dtype=torch.float32, device="cpu") -> SketchState:
-    """Empty stream summary with a static ``budget``-lane budget."""
+def sketch_init(budget: int, dtype=torch.float32,
+                device="cuda") -> SketchState:
+    """Empty stream summary with a static ``budget``-lane budget, on
+    ``device`` (``"cuda"`` without a card raises)."""
+    from .select import require_device
+    device = require_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return SketchState(values=_high(dtype, device).expand(budget).clone(),
                        weights=torch.zeros((budget,), **i32),
@@ -313,7 +317,7 @@ def sketch_unstack(stacked: SketchState):
 
 
 def sketch_init_stack(count: int, budget: int, dtype=torch.float32,
-                      device="cpu") -> SketchState:
+                      device="cuda") -> SketchState:
     """``count`` empty stream summaries as one stacked summary."""
     one = sketch_init(budget, dtype, device)
     return SketchState(*(leaf.expand((count,) + leaf.shape).clone()

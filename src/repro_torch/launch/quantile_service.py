@@ -1,7 +1,7 @@
-"""QuantileService: multi-tenant streaming quantile queries, in PyTorch.
+"""QuantileService: multi-tenant streaming quantile queries, in PyTorch,
+and the ``StreamingCalibrator`` that serving keeps on it.
 
-Counterpart of ``repro/launch/quantile_service.py`` (all of it but
-``StreamingCalibrator``).  Every tensor of a service lives on its
+Counterpart of ``repro/launch/quantile_service.py``.  Every tensor of a service lives on its
 ``device`` (default ``"cuda"``; ``device="cpu"`` runs the plain versions).
 
 Storage:
@@ -51,6 +51,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import os
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -1407,3 +1408,100 @@ class QuantileService:
                 gs.key_chunks.append(tensor(next(it)))
             svc._grouped[name] = gs
         return svc
+
+
+class StreamingCalibrator:
+    """int8 activation calibration that keeps running |activation| sketches
+    across decode steps.
+
+    Each step's activations fold into persistent per-tensor streams of a
+    ``QuantileService``, and scales come either approximately in O(s)
+    (``approx_scale``) or exactly from a warm query (``scale``): no sketch
+    sort at scale-query time.  ``observe_many`` batches all of a step's
+    tensors into ONE ingest tick, so the per-step cost stays constant in
+    the tensor count.  ``fused=True`` runs each warm query's count+extract
+    through ``fused_select``, one launch per ring chunk (per observed step)
+    on a CUDA device.
+
+    ``ingest_threads`` > 0 opts into the threaded ingest pipeline
+    (``ingest_pool.IngestPool``): ``observe_many`` becomes a queue handoff
+    so that calibration stops taking decode-loop time, ``scale()`` flushes
+    first (still exact up to now), and ``approx_scale`` reads the folded
+    state without a barrier, stale by at most the pool's ``lag_values()``.
+    ``None`` reads ``REPRO_INGEST_THREADS`` (default 0 = synchronous).
+    Call ``close()`` (or use it as a context manager) when threaded.
+    ``device`` holds the service (``"cuda"`` without a card raises)."""
+
+    def __init__(self, q: float = 0.999, *, eps: float = 0.01,
+                 fused: bool = False, ingest_threads: Optional[int] = None,
+                 device="cuda"):
+        self.q = q
+        self.service = QuantileService(eps=eps, fused=fused, device=device)
+        if ingest_threads is None:
+            from .ingest_pool import default_ingest_workers
+            ingest_threads = (default_ingest_workers()
+                              if "REPRO_INGEST_THREADS" in os.environ else 0)
+        self.pool = None
+        if ingest_threads:
+            from .ingest_pool import IngestPool
+            self.pool = IngestPool(self.service, workers=ingest_threads)
+
+    def observe(self, name: str, activations) -> None:
+        self.observe_many({name: activations})
+
+    def observe_many(self, named: Dict[str, object]) -> None:
+        """Fold one decode step's activations, every tensor at once, into
+        the per-tensor streams: ONE ingest tick however many tensors the
+        step observed (|x| in f32 applied on the service's device).
+        Threaded mode queues the tensors instead (|x| applied host-side in
+        the worker thread, the same bits) and returns at once."""
+        if not named:
+            return
+        names = sorted(named)
+        if self.pool is not None:
+            for n in names:
+                self.pool.submit(n, named[n], transform="abs_f32")
+            return
+        self.service.ingest_batch(names, [named[n] for n in names],
+                                  transform="abs_f32")
+
+    def scale(self, name: str):
+        """Exact symmetric int8 scale: warm GK Select over everything
+        observed so far.  Threaded mode flushes the pool first, so 'so far'
+        includes every queued step."""
+        self.flush()
+        return self.service.exact(name, self.q)
+
+    def approx_scale(self, name: str):
+        """O(s) scale estimate from the sketch alone (rank error within
+        ``service.rank_bound(name)``), for per-step monitoring.  Threaded
+        mode does NOT flush: it reads the folded state, stale by at most
+        ``pool.lag_values()`` queued values."""
+        return self.service.approx(name, self.q)
+
+    def observed(self, name: str) -> int:
+        """Values folded for ``name`` (flushes first in threaded mode, so
+        that the count covers every queued observation)."""
+        self.flush()
+        return self.service.stream_count(name)
+
+    def flush(self) -> None:
+        """Barrier for threaded mode (no-op when synchronous)."""
+        if self.pool is not None:
+            self.pool.flush()
+
+    def close(self) -> None:
+        """Stop the ingest pool, folding everything queued (no-op when
+        synchronous).  Idempotent."""
+        if self.pool is not None:
+            self.pool.close()
+
+    def __enter__(self) -> "StreamingCalibrator":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            self.close()
+        except BaseException:
+            if exc_type is None:
+                raise

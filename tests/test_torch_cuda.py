@@ -327,3 +327,69 @@ def test_service_on_card_matches_cpu(cuda, dtype, fused):
         assert launched["segmented_select"] > 0
     else:
         assert launched["fused_select"] == launched["segmented_select"] == 0
+
+
+def _calibration_answers(device, fused, threads):
+    """Scales of a calibrator fed 6 steps of (4, 300) logits (signed zeros
+    and large values among them), and the one-shot calibrations."""
+    from repro_torch.launch import StreamingCalibrator, serve
+    rng = np.random.default_rng(9)
+    steps = []
+    for _ in range(6):
+        x = rng.normal(size=(4, 300)).astype(np.float32) * 3
+        x[0, ::7] = -0.0
+        x[1, ::11] = 1e30
+        steps.append(torch.from_numpy(x).to(device))
+    with StreamingCalibrator(0.999, fused=fused, ingest_threads=threads,
+                             device=device) as cal:
+        for x in steps:
+            cal.observe_many({"logits": x})
+        out = [cal.scale("logits"), torch.tensor(cal.observed("logits"))]
+        if not threads:
+            out.append(cal.approx_scale("logits"))
+    acts = torch.cat(steps).reshape(24, 3, 100)
+    out += [serve.calibrate_int8_scale(acts, device=device),
+            serve.calibrate_int8_scales(acts, axis=-1, device=device)]
+    return [_bits(t.reshape(-1)) for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", (0, 2))
+@pytest.mark.parametrize("fused", (False, True))
+def test_calibration_on_card_matches_cpu(cuda, fused, threads):
+    """The serving path's int8 scales on the card equal the CPU port's bit
+    for bit: streaming (synchronous or through an ingest pool) and
+    one-shot."""
+    K.reset_launches()
+    got = _calibration_answers(cuda, fused, threads)
+    launched = K.launches()
+    assert got == _calibration_answers("cpu", fused, threads)
+    assert (launched["fused_select"] > 0) == fused
+
+
+@pytest.mark.cuda
+def test_generate_on_card_observes_every_step(cuda):
+    """A reduced granite-8b on the card: greedy tokens of the right shape,
+    and the warm scale equals a sort of every observed |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import StreamingCalibrator, serve
+    from repro_torch.models import model
+    cfg = get_config("granite-8b").reduced()
+    params = model.init_params(cfg, 0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), device=cuda,
+                            dtype=torch.int32)
+    seen = []
+
+    class Tap(StreamingCalibrator):
+        def observe_many(self, named):
+            seen.append(named["logits"].clone())
+            super().observe_many(named)
+
+    cal = Tap(0.999, fused=True, device=cuda)
+    toks = serve.generate(cfg, params, prompts, gen_len=5, calibrator=cal)
+    assert toks.shape == (2, 5) and toks.device.type == cuda.type
+    assert len(seen) == 5 and cal.observed("logits") == 5 * 2 * cfg.vocab
+    flat = torch.cat(seen).reshape(-1).abs()
+    k = int(np.ceil(0.999 * flat.numel()))
+    assert _bits(cal.scale("logits").reshape(1)) == _bits(
+        torch.sort(flat).values[k - 1].reshape(1))

@@ -44,6 +44,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.kernels.band_count, "
             "repro_torch.kernels.segmented_select, repro_torch.testing, "
             "repro_torch.launch.quantile_service, "
+            "repro_torch.launch.ingest_pool, repro_torch.launch.serve, "
+            "repro_torch.models.config, repro_torch.models.layers, "
+            "repro_torch.models.model, repro_torch.configs, "
+            "repro_torch.optim.quantile_ops, "
             "repro_torch.checkpoint.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
@@ -78,6 +82,9 @@ def test_layout_mirrors_the_jax_package():
     for rel in ("core/local_ops.py", "core/sketch.py", "core/select.py",
                 "core/baselines.py", "core/engine.py", "core/grouped.py",
                 "core/distributed.py", "launch/quantile_service.py",
+                "launch/ingest_pool.py", "launch/serve.py",
+                "models/config.py", "models/layers.py", "models/model.py",
+                "configs/__init__.py", "optim/quantile_ops.py",
                 "checkpoint/checkpoint.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
                 "kernels/fused_select.py", "kernels/partition_count.py",
@@ -90,9 +97,22 @@ def test_layout_mirrors_the_jax_package():
     for name in repro_torch.__all__:
         assert hasattr(repro_torch, name), name
     for module in (repro_torch.core, repro_torch.launch,
-                   repro_torch.checkpoint):
+                   repro_torch.checkpoint, repro_torch.optim,
+                   repro_torch.models, repro_torch.configs):
         for name in module.__all__:
             assert hasattr(module, name), name
+    # one module a published config, as in the JAX package
+    from repro_torch.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        rel = os.path.join("configs", arch.replace("-", "_").replace(".", "_")
+                           + ".py")
+        assert os.path.exists(os.path.join(PKG, rel)), rel
+    assert set(repro_torch.optim.__all__) == {
+        "pytree_exact_quantile", "pytree_radix_quantile",
+        "channelwise_exact_quantile", "quantile_clip_by_value"}
+    assert {"IngestPool", "StreamingCalibrator", "calibrate_int8_scale",
+            "calibrate_int8_scales", "generate"} <= set(
+                repro_torch.launch.__all__)
 
 
 def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
@@ -118,6 +138,38 @@ def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
     svc.ingest("s", x)
     assert svc.exact("s", 0.5).device.type == "cpu"
     assert float(svc.exact("s", 0.5)) == 7.0
+
+
+def test_serving_entry_points_go_to_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.core import sketch
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.abs(np.arange(-8, 16, dtype=np.float32)).reshape(4, 6)
+    cfg = get_config("granite-8b").reduced()
+    tree = {name: np.zeros(w.shape, np.float32) for name, w in
+            model.init_params(cfg, 0, device="cpu").p.items()}
+    calls = (
+        lambda **kw: serve.calibrate_int8_scale(x, 0.5, **kw),
+        lambda **kw: serve.calibrate_int8_scales(x, 0, 0.5, **kw),
+        lambda **kw: repro_torch.StreamingCalibrator(**kw),
+        lambda **kw: model.init_params(cfg, 0, **kw),
+        lambda **kw: model.Transformer(cfg, **kw),
+        lambda **kw: model.init_cache(cfg, 1, 4, **kw),
+        lambda **kw: model.params_from_numpy(cfg, tree, **kw),
+        lambda **kw: sketch.sketch_init(8, **kw),
+        lambda **kw: sketch.sketch_init_stack(2, 8, **kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert float(calls[0](device="cpu")) == 6.0
+    assert calls[1](device="cpu").tolist() == [5.0, 1.0, 6.0, 12.0]
+    assert calls[2](device="cpu").service.device.type == "cpu"
+    assert calls[3](device="cpu").device.type == "cpu"
+    assert calls[5](device="cpu")["k"].device.type == "cpu"
+    assert calls[7](device="cpu").values.device.type == "cpu"
+    assert calls[8](device="cpu").values.shape == (2, 8)
 
 
 def test_tensor_entry_points_run_where_the_tensor_lives():

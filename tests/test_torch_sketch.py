@@ -83,7 +83,8 @@ def _jax_stacked(dtype, S, rounds, seed):
     """A stacked JAX state after ``rounds`` ragged batched updates, and the
     port's after the same updates (each round compared)."""
     jst = J.sketch_init_stack(S, BUDGET, jnp.dtype(_np_dtype(dtype)))
-    tst = T.sketch_init_stack(S, BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype)
+    tst = T.sketch_init_stack(S, BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype,
+                              device="cpu")
     assert_state(jst, tst)
     rng = np.random.default_rng(seed)
     for r in range(rounds):
@@ -104,7 +105,8 @@ def test_sketch_update_matches_jax(dtype):
     with _x64(dtype):
         jd = jnp.dtype(_np_dtype(dtype))
         js = J.sketch_init(BUDGET, jd)
-        ts = T.sketch_init(BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype)
+        ts = T.sketch_init(BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype,
+                           device="cpu")
         assert_state(js, ts)
         for i, n in enumerate((1, 0, 5, 33, 200, 0, 64)):
             batch = _stream(dtype, n, i)
@@ -120,7 +122,8 @@ def test_sketch_update_padded_matches_jax(dtype):
     with _x64(dtype):
         jd = jnp.dtype(_np_dtype(dtype))
         js = J.sketch_init(BUDGET, jd)
-        ts = T.sketch_init(BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype)
+        ts = T.sketch_init(BUDGET, _t(np.zeros(1, _np_dtype(dtype))).dtype,
+                           device="cpu")
         for i, (L, nv) in enumerate(((10, 0), (10, 10), (50, 17), (80, 80),
                                      (5, 0), (100, 99))):
             row = _padded(dtype, [nv], L, i)[0]
@@ -150,7 +153,7 @@ def test_sketch_merges_match_jax(dtype):
         empty_j = J.sketch_unstack(J.sketch_init_stack(
             1, BUDGET, ja.values.dtype))[0]
         empty_t = T.sketch_unstack(T.sketch_init_stack(
-            1, BUDGET, ta.values.dtype))[0]
+            1, BUDGET, ta.values.dtype, device="cpu"))[0]
         rows_j, rows_t = J.sketch_unstack(ja), T.sketch_unstack(ta)
         for a_j, a_t in zip(rows_j, rows_t):
             assert_state(a_j, a_t)
@@ -163,7 +166,8 @@ def test_sketch_merges_match_jax(dtype):
                          T.sketch_merge_rows(T.sketch_stack(rows_t[:k])))
         with pytest.raises(ValueError):
             T.sketch_merge(rows_t[0], T.sketch_init(BUDGET // 2,
-                                                    ta.values.dtype))
+                                                    ta.values.dtype,
+                                                    device="cpu"))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -213,7 +217,7 @@ def test_sketch_budget_init_and_stack():
     for bad in (0.0, 1.0, -1.0):
         with pytest.raises(ValueError):
             T.sketch_budget(bad)
-    st = T.sketch_init_stack(3, 8, torch.int32)
+    st = T.sketch_init_stack(3, 8, torch.int32, device="cpu")
     assert st.values.shape == (3, 8) and st.n.shape == (3,)
     assert int(st.values.max()) == np.iinfo(np.int32).max
     rows = T.sketch_unstack(st)
