@@ -122,10 +122,32 @@
    Last, 8 prompts of 4096 tokens take the blockwise attention: the first
    layer's, against the direct path, within 1e-5 of max |out| and within
    its memory bound (one q block at a time), then the whole prefill.
-10. Times each kernel at its path's shapes beside its bound, its plain
+10. Drives the training path (``repro_torch.launch.train.train_loop``) on
+   stablelm-1.6b at its published width and depth (24 layers, d_model
+   2048, 32 heads of 64, d_ff 5632, vocab 100352, LayerNorm with bias;
+   1.64 B bf16 parameters from ``--seed``): 6 steps of 8 x 2048 Zipf(1.2)
+   tokens, ``remat="nothing_saveable"``, AdamW with the exact
+   0.999-quantile clip of |g| (the radix route), then one step with int8
+   compression.  Every loss must be finite; every clip threshold and the
+   int8 scale must be the exact quantile of what it was taken over (two
+   direct int64 counts around the target rank, no code of the radix
+   route), and no clipped |g| may exceed its threshold.  Prints step time,
+   tokens/s, the model-FLOPs share (6 N T at 989 TFLOP/s), the clip's time
+   and share of the step, peak memory, and the busy share and top CUDA
+   kernels of one more step (after a warm-up step).  Then the
+   blockwise attention's backward on the first layer's q, k, v (f32, 8 x
+   2048 x 32 x 64) against autograd through the direct formula (within
+   1e-4 of max |grad|), with its peak memory; and exact resume at 2 layers
+   of full width: 6 steps against 3, a checkpoint (about 5 GB, through a
+   temporary directory) and a restart for 3 more, the losses within rtol =
+   atol = 2e-4 and the restored state equal to the saved one bit for bit.
+   The six kernels' launch counts are zeroed before this phase and read
+   after it (``train_launches``; the training path launches none).
+11. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
    one ``kernels`` JSON line with all six, each with its launches per
-   service query (the serve's ``scale`` queries among them).
+   service query (the serve's ``scale`` queries among them) and on the
+   training path.
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -136,6 +158,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -155,6 +178,8 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
+TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32, no tensor cores
 TIMED_RUNS = 5
@@ -216,29 +241,38 @@ def _event_ms(fn, iters: int) -> float:
 
 
 def _profile(fn, top: int = 8) -> dict:
-    """Device time by kernel over one call of fn, from torch.profiler, and
-    the device's busy share of the call's wall time."""
+    """Device time by kernel (and memcpy, memset) over one call of fn after
+    a warm-up call, from torch.profiler's Chrome trace (its event list's
+    Python objects take minutes for a call of ~10^5 launches), and the
+    device's busy share of the call's wall time."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or "Buffer" in evt.name:       # profiler bookkeeping
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_name, launches = {}, 0
+    for evt in events:
+        if evt.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        name = evt.name.replace("(anonymous namespace)::", "")
+        launches += evt["cat"] == "kernel"
+        name = evt["name"].replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("<")[0].split("(")[0]
         name = name.split("::")[-1].strip()
-        by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        by_name[name] = by_name.get(name, 0.0) + evt.get("dur", 0) / 1e3
     device_ms = sum(by_name.values())
     if not device_ms:
         return {"wall_ms": wall * 1e3, "device_ms": "not measured"}
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "kernel_launches": launches,
             "device_busy_share": device_ms / (wall * 1e3),
             "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
@@ -2132,6 +2166,280 @@ def serve_path(seed: int, tally) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# 10. the training path: stablelm-1.6b through train_loop
+# ---------------------------------------------------------------------------
+
+
+def _check_exact_quantile(what: str, grads, thr, q: float) -> None:
+    """``thr`` is the exact q-quantile of |g| over every element of the
+    gradient tree: count(|g| < thr) < k <= count(|g| <= thr), k =
+    target_rank(n, q), with two direct counts summed in int64 (no code of
+    the radix route)."""
+    from repro_torch import pytree
+    from repro_torch.core import local_ops
+    leaves = pytree.leaves(grads)
+    n = sum(g.numel() for g in leaves)
+    k = local_ops.target_rank(n, q)
+    lt = le = 0
+    for g in leaves:
+        a = g.float().abs()
+        lt += int((a < thr).sum(dtype=torch.int64))
+        le += int((a <= thr).sum(dtype=torch.int64))
+    if not lt < k <= le:
+        raise AssertionError(f"{what}: {float(thr)!r} is not the exact "
+                             f"{q}-quantile of |g| over {n} values: "
+                             f"{lt} below, {le} at or below, rank {k}")
+
+
+class _OptimizerTaps:
+    """Wraps ``quantile_clip_by_value`` and ``compress_int8`` where AdamW
+    calls them: times each clip (synchronised), and checks each clip
+    threshold and int8 scale with ``_check_exact_quantile`` and that no
+    clipped |g| exceeds its threshold, timing the checks apart."""
+
+    def __init__(self):
+        from repro_torch.optim import adamw
+        self.adamw = adamw
+        self.clip_s, self.check_s, self.thresholds, self.scales = [], [], [], []
+
+    def __enter__(self):
+        from repro_torch import pytree
+        clip, compress = (self.adamw.quantile_clip_by_value,
+                          self.adamw.compress_int8)
+        self.saved = clip, compress
+
+        def tapped_clip(grads, q, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clipped, thr = clip(grads, q, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.clip_s.append(t1 - t0)
+            self.thresholds.append(float(thr))
+            _check_exact_quantile("clip threshold", grads, thr, q)
+            top = max(float(g.float().abs().max())
+                      for g in pytree.leaves(clipped))
+            if not top <= float(thr):
+                raise AssertionError(f"clipped max |g| {top} > {float(thr)}")
+            self.check_s.append(time.perf_counter() - t1)
+            return clipped, thr
+
+        def tapped_compress(grads, **kw):
+            q8, scale = compress(grads, **kw)
+            t0 = time.perf_counter()
+            self.scales.append(float(scale))
+            _check_exact_quantile("int8 scale", grads, scale,
+                                  kw.get("q", 0.999))
+            self.check_s.append(time.perf_counter() - t0)
+            return q8, scale
+
+        self.adamw.quantile_clip_by_value = tapped_clip
+        self.adamw.compress_int8 = tapped_compress
+        return self
+
+    def __exit__(self, *exc):
+        self.adamw.quantile_clip_by_value, self.adamw.compress_int8 = \
+            self.saved
+        return False
+
+
+def _flash_backward_check(params, cfg, batch) -> dict:
+    """The blockwise attention's backward at full width on the first
+    layer's q, k, v (in f32) for the training batch: dq, dk, dv of the
+    autograd Function against autograd through the direct f32 formula,
+    within 1e-4 of max |grad|; and the backward's peak memory above its
+    operands beside one kv step's (B, NH, q_block, kv_block) scores."""
+    from repro_torch.models import layers, model
+
+    B, S = batch["tokens"].shape
+    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if S * S <= cfg.attn_q_block * cfg.attn_kv_block * 2:
+        raise AssertionError("train flash check: not the blockwise path")
+    with torch.no_grad():
+        x, pos = model._embed_inputs(params, batch)
+        p = params.blocks[0].p
+        h = layers.norm(x, p, cfg, "ln1")
+        q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
+                                  cfg.rope_theta).float()
+                for w, n in (("wq", NH), ("wk", KV)))
+        v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
+        del x, h
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    kw = dict(window=cfg.swa_window, q_block=cfg.attn_q_block,
+              kv_block=cfg.attn_kv_block)
+
+    def grads(**blocks):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = layers.attention(qq, kk, vv, pos, pos, **blocks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out.backward(dout)
+        torch.cuda.synchronize()
+        return ((qq.grad, kk.grad, vv.grad),
+                torch.cuda.max_memory_allocated() - before,
+                time.perf_counter() - t0)
+
+    blockwise, peak, flash_s = grads(**kw)
+    direct, direct_peak, direct_s = grads(window=cfg.swa_window,
+                                          q_block=S, kv_block=S)
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(blockwise, direct))
+    if not err <= 1e-4:
+        raise AssertionError(f"train flash backward: {err} of max |grad| "
+                             f"off the direct formula")
+    return {"batch": B, "seq_len": S, "heads": NH, "d_head": dh,
+            "rel_err": err, "bound": 1e-4,
+            "backward_peak_above_operands_bytes": peak,
+            "kv_step_scores_bytes": B * NH * cfg.attn_q_block
+            * cfg.attn_kv_block * 4,
+            "backward_s": flash_s,
+            "direct_backward_peak_above_operands_bytes": direct_peak,
+            "direct_backward_s": direct_s}
+
+
+def _exact_resume(cfg, seed: int) -> dict:
+    """TRAIN_RESUME_LAYERS layers at full width: TRAIN_STEPS steps
+    uninterrupted against half of them, a checkpoint through a temporary
+    directory and a restart for the rest.  The restored params, m and v
+    equal the saved ones bit for bit; the losses agree within the
+    reference's resume bound (rtol = atol = 2e-4)."""
+    import tempfile
+    from repro_torch import pytree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch.train import _state_tree, train_loop
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    run = dict(global_batch=TRAIN_B, seq_len=TRAIN_S, seed=seed,
+               log_every=0, device="cuda")
+    half = TRAIN_STEPS // 2
+    full = train_loop(cfg, steps=TRAIN_STEPS, **run)["losses"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        partial, save_s = _sync_time(lambda: train_loop(
+            cfg, steps=half, ckpt_dir=d, ckpt_every=100, **run))
+        tree = _state_tree(model.param_tree(partial["params"]),
+                           partial["opt_state"], "cuda")
+        ckpt_bytes = sum(t.numel() * t.element_size()
+                         for t in pytree.leaves(tree))
+        (restored, _), restore_s = _sync_time(
+            lambda: restore_checkpoint(d, tree, device="cuda"))
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                   zip(pytree.leaves(restored), pytree.leaves(tree)))
+        if not same:
+            raise AssertionError("train resume: the restored state differs "
+                                 "from the saved one")
+        del tree, restored, partial["params"], partial["opt_state"]
+        torch.cuda.empty_cache()
+        resumed = train_loop(cfg, steps=TRAIN_STEPS, ckpt_dir=d,
+                             ckpt_every=100, **run)["losses"]
+    got = partial["losses"] + resumed
+    diff = [abs(a - b) for a, b in zip(got, full)]
+    ok = len(got) == len(full) and all(
+        dd <= 2e-4 + 2e-4 * abs(b) for dd, b in zip(diff, full))
+    if not ok:
+        raise AssertionError(f"train resume: losses {got} against {full}")
+    return {"layers": cfg.n_layers, "steps": TRAIN_STEPS, "restart_at": half,
+            "losses_uninterrupted": full, "losses_resumed": got,
+            "max_abs_diff": max(diff), "bound": "rtol = atol = 2e-4",
+            "checkpoint_bytes": ckpt_bytes,
+            "partial_run_with_save_s": save_s, "restore_s": restore_s,
+            "state_bit_exact": same}
+
+
+def train_path(seed: int) -> dict:
+    """stablelm-1.6b at its published width and depth (1.64 B bf16
+    parameters from ``--seed``) through ``train_loop``: TRAIN_STEPS steps
+    of TRAIN_B x TRAIN_S Zipf tokens, AdamW with the exact 0.999-quantile
+    clip, ``remat="nothing_saveable"``; then one step with int8
+    compression.  Every loss is finite, and every clip threshold and the
+    int8 scale of these steps is the exact quantile of what it was taken
+    over.  Then two steps, the second profiled (without those checks),
+    the flash backward at full width and exact resume at
+    TRAIN_RESUME_LAYERS layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.remat != "nothing_saveable":
+        raise AssertionError(f"train: remat {cfg.remat!r}")
+    with _OptimizerTaps() as taps:
+        out = train_loop(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=seed, log_every=1,
+                         device="cuda")
+        if len(out["losses"]) != TRAIN_STEPS or not all(
+                math.isfinite(l) for l in out["losses"]):
+            raise AssertionError(f"train: losses {out['losses']}")
+        if len(taps.thresholds) != TRAIN_STEPS:
+            raise AssertionError(f"train: {len(taps.thresholds)} clips in "
+                                 f"{TRAIN_STEPS} steps")
+        peak = torch.cuda.max_memory_allocated() - base
+        params, opt_state = out["params"], out["opt_state"]
+        pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                            global_batch=TRAIN_B, seed=seed))
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        compress_step = make_train_step(cfg, AdamWConfig(
+            quantile_clip=TRAIN_Q, compress_bits=8))
+        torch.cuda.reset_peak_memory_stats()
+        (_, opt_state, m), compress_s = _sync_time(
+            lambda: compress_step(params, opt_state, batch))
+        compress = {"loss": float(m["loss"]),
+                    "scale": float(m["compress_scale"]),
+                    "clip_threshold": float(m["clip_threshold"]),
+                    "step_s": compress_s,
+                    "peak_memory_bytes":
+                    torch.cuda.max_memory_allocated() - base}
+        if not (math.isfinite(compress["loss"]) and len(taps.scales) == 1):
+            raise AssertionError(f"train compress step: {compress}")
+    # two more steps, the second profiled, without the taps' checks and
+    # syncs
+    step = make_train_step(cfg, AdamWConfig(quantile_clip=TRAIN_Q))
+    profiled = _profile(lambda: step(params, opt_state, batch))
+    checks = {"clip_thresholds": taps.thresholds, "int8_scales": taps.scales,
+              "check_s": taps.check_s}
+    del opt_state, m, step
+    torch.cuda.empty_cache()
+    flash = _flash_backward_check(params, cfg, batch)
+    n_params = sum(w.numel() for w in params.parameters())
+    del params, out["params"], out["opt_state"]
+    torch.cuda.empty_cache()
+    resume = _exact_resume(cfg, seed)
+
+    # steps 2..TRAIN_STEPS, each without its exactness checks
+    timed = [s - c for s, c in zip(out["step_s"], taps.check_s)][1:]
+    step_s = statistics.median(timed)
+    clip_s = statistics.median(taps.clip_s[1:TRAIN_STEPS])
+    tokens = TRAIN_B * TRAIN_S
+    return {
+        "arch": TRAIN_ARCH, "params": n_params, "layers": cfg.n_layers,
+        "batch": TRAIN_B, "seq_len": TRAIN_S, "tokens_per_step": tokens,
+        "remat": cfg.remat, "quantile_clip": TRAIN_Q,
+        "losses": out["losses"], "step_s_each": out["step_s"],
+        "step_s": step_s, "tokens_per_s": tokens / step_s,
+        "model_flops_share": 6 * n_params * tokens / step_s
+        / BF16_FLOPS_PER_S,
+        "model_flops_bound_s": 6 * n_params * tokens / BF16_FLOPS_PER_S,
+        "clip_s": clip_s, "clip_share_of_step": clip_s / step_s,
+        "clip_s_each": taps.clip_s, "peak_memory_bytes": peak,
+        "exactness": checks, "compress_step": compress,
+        "profiled_step": profiled, "flash_backward": flash,
+        "exact_resume": resume, "wall_s": time.perf_counter() - t_phase,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all() -> None:
@@ -2165,6 +2473,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
+    import repro_torch.kernels as K
     if "jax" in sys.modules or "repro" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")
 
@@ -2227,6 +2536,12 @@ def main() -> int:
             f"serve_path.{query}": counts["launches"][row["name"]]
             for query, counts in serve_launches.items()
             if row["name"] in counts["launches"]})
+    K.reset_launches()
+    result = train_path(args.seed)
+    print(json.dumps({"train_path": result}), flush=True)
+    train_launches = K.launches()
+    for row in kernels:
+        row["train_launches"] = train_launches.get(row["name"], 0)
     parity = tally.result()
     for name, (p, t) in parity.items():
         if p != t:

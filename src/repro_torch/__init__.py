@@ -12,14 +12,22 @@ kernels  the Hopper kernels, their plain PyTorch versions, the device
          points
 launch   the streaming ``QuantileService``, its ``IngestPool`` and the
          ``StreamingCalibrator``; ``launch.serve``: prefill + decode of a
-         dense model with exact int8 calibration
-models   the dense family's layers and assembly; ``configs`` its registry
-optim    exact quantiles over pytrees and channels
+         dense model with exact int8 calibration; ``launch.train``: the
+         training loop (``launch.steps`` builds its step)
+models   the dense family's layers and assembly, with its training loss;
+         ``configs`` its registry
+optim    AdamW, and exact quantiles over pytrees and channels (the
+         gradient clip, int8 compression, per-channel scales)
+data     the synthetic, index-addressable token pipeline
+distributed  preemption, straggler and elastic-rescale logic of training
+checkpoint   checkpoints of pytrees and service snapshots, in the JAX
+         package's format
 
 Entry points run where their tensor lives; those that take host data take
 ``device=`` (default ``"cuda"``, which raises without a card).
 """
-from . import checkpoint, configs, core, kernels, launch, models, optim
+from . import (checkpoint, configs, core, data, distributed, kernels, launch,
+               models, optim, pytree)
 from .core import (exact_quantile, exact_quantile_rank, gk_select,
                    gk_select_multi, gk_select_grouped, full_sort_quantile,
                    approx_quantile, distributed_quantile,
@@ -28,8 +36,8 @@ from .launch import (IngestPool, QuantileService, StreamingCalibrator,
                      Window)
 from .checkpoint import save_service_snapshot, restore_service_snapshot
 
-__all__ = ["checkpoint", "configs", "core", "kernels", "launch", "models",
-           "optim", "exact_quantile",
+__all__ = ["checkpoint", "configs", "core", "data", "distributed",
+           "kernels", "launch", "models", "optim", "pytree", "exact_quantile",
            "exact_quantile_rank", "gk_select", "gk_select_multi", "gk_select_grouped",
            "full_sort_quantile", "approx_quantile", "distributed_quantile",
            "distributed_quantile_multi", "distributed_quantile_grouped",

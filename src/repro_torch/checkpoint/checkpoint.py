@@ -1,17 +1,20 @@
-"""Atomic checkpoints of flat leaf lists, with retention, in PyTorch.
+"""Atomic checkpoints of pytrees, with retention, in PyTorch.
 
-Counterpart of ``repro/checkpoint/checkpoint.py`` for flat lists of leaves
-(the service snapshots).  The layout is the JAX package's, so that each
-package restores the other's checkpoints:
+Counterpart of ``repro/checkpoint/checkpoint.py``.  The layout is the JAX
+package's, so that each package restores the other's checkpoints:
 
-    <dir>/step_<N>/manifest.json   {"step", "paths" ("[i]"), "dtypes",
-                                    "shapes", "extra"}
-    <dir>/step_<N>/leaf_<i>.npy    one array per leaf; bfloat16 stored as
-                                   its uint16 bits
+    <dir>/step_<N>/manifest.json   {"step", "paths" (``jax.tree_util.keystr``
+                                    of each leaf), "dtypes", "shapes",
+                                    "extra"}
+    <dir>/step_<N>/leaf_<i>.npy    one array per leaf, in JAX's leaf order;
+                                   bfloat16 stored as its uint16 bits
 
 A step is written into a temporary directory and renamed into place, so an
-interrupted save never corrupts the latest checkpoint.  The templated
-``restore_checkpoint`` of model state is not ported yet.
+interrupted save never corrupts the latest checkpoint.  A training
+checkpoint is the tree ``(params, AdamWState)`` with the blocks stacked
+(``models.model.stacked``), leaf for leaf the JAX package's.  Arrays carry
+no device: ``restore_checkpoint`` puts them on the device asked for (the
+reference's ``shardings`` has no single-card counterpart).
 """
 from __future__ import annotations
 
@@ -19,10 +22,13 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import pytree
+from ..core.select import require_device
 
 
 def _leaf_array(leaf) -> Tuple[np.ndarray, str]:
@@ -40,24 +46,21 @@ def _leaf_array(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(directory: str, step: int, leaves: Sequence,
+def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
-    """Atomically write step_<N> of a flat list of leaves; prune to the
-    newest ``keep`` checkpoints."""
+    """Atomically write step_<N> of a pytree (tensors or numpy arrays, a
+    flat list included); prune to the newest ``keep`` checkpoints."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=directory)
     try:
-        arrays = [_leaf_array(leaf) for leaf in leaves]
-        manifest = {
-            "step": int(step),
-            "paths": [f"[{i}]" for i in range(len(arrays))],
-            "dtypes": [name for _, name in arrays],
-            "shapes": [list(arr.shape) for arr, _ in arrays],
-            "extra": extra or {},
-        }
-        for i, (arr, _) in enumerate(arrays):
+        manifest = {"step": int(step), "paths": pytree.paths(tree),
+                    "dtypes": [], "shapes": [], "extra": extra or {}}
+        for i, leaf in enumerate(pytree.leaves(tree)):   # one on the host
+            arr, dtype = _leaf_array(leaf)
             np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
+            manifest["dtypes"].append(dtype)
+            manifest["shapes"].append(list(arr.shape))
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -86,25 +89,56 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint_flat(directory: str, step: Optional[int] = None
-                            ) -> Tuple[List[torch.Tensor], Dict]:
-    """Templateless restore of a flat leaf list: ``(leaves, extra)`` with
-    each leaf a CPU tensor of its saved dtype and shape."""
+def _manifest(directory: str, step: Optional[int]) -> Tuple[str, Dict]:
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    leaves = []
-    for i, dtype in enumerate(manifest["dtypes"]):
-        arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
-        if dtype == "bfloat16":
-            leaves.append(torch.from_numpy(arr.view(np.int16)).view(
-                torch.bfloat16))
-        else:
-            leaves.append(torch.from_numpy(arr))
-    return leaves, manifest["extra"]
+        return path, json.load(f)
+
+
+def _load_leaf(path: str, i: int, dtype: str) -> torch.Tensor:
+    arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def restore_checkpoint(directory: str, template: Any,
+                       step: Optional[int] = None,
+                       device="cuda") -> Tuple[Any, Dict]:
+    """Load step ``step`` (the newest by default) into the structure of
+    ``template``, whose tensors (``meta`` ones will do) give each leaf's
+    shape and dtype: ``(tree, extra)``, the leaves on ``device``.  A
+    checkpoint of another structure or shape raises
+    ``ValueError``; a leaf of another dtype is cast to the template's."""
+    device = require_device(device)
+    path, manifest = _manifest(directory, step)
+    want = pytree.leaves(template)
+    if len(want) != len(manifest["paths"]):
+        raise ValueError(
+            f"checkpoint has {len(manifest['paths'])} leaves, template "
+            f"{len(want)}: structure changed")
+    loaded = []
+    for i, tmpl in enumerate(want):
+        t = _load_leaf(path, i, manifest["dtypes"][i])
+        if list(t.shape) != list(tmpl.shape):
+            raise ValueError(f"leaf {i} ({manifest['paths'][i]}) shape "
+                             f"{tuple(t.shape)} != template "
+                             f"{tuple(tmpl.shape)}")
+        loaded.append(t.to(device=device, dtype=tmpl.dtype))
+    return pytree.unflatten(template, loaded), manifest["extra"]
+
+
+def restore_checkpoint_flat(directory: str, step: Optional[int] = None
+                            ) -> Tuple[List[torch.Tensor], Dict]:
+    """Templateless restore of a flat leaf list: ``(leaves, extra)`` with
+    each leaf a CPU tensor of its saved dtype and shape."""
+    path, manifest = _manifest(directory, step)
+    return ([_load_leaf(path, i, dtype)
+             for i, dtype in enumerate(manifest["dtypes"])],
+            manifest["extra"])
 
 
 def save_service_snapshot(directory: str, step: int, service,

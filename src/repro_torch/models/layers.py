@@ -1,8 +1,8 @@
-"""Core neural layers of the serving path, in PyTorch: norms, rotary
-embeddings, grouped-query attention (the decode path, the direct path and a
-blockwise online-softmax path for long prompts) and the MLPs.
+"""Core neural layers, in PyTorch: norms, rotary embeddings, grouped-query
+attention (the decode path, the direct path and a blockwise online-softmax
+path for long sequences, with a blockwise backward) and the MLPs.
 
-Counterpart of ``repro/models/layers.py``'s forward half.  Layers are plain
+Counterpart of ``repro/models/layers.py``.  Layers are plain
 functions of tensors; a block's weights come in a mapping by the JAX names
 (``wq``, ``wk``, ``wv``, ``wo``, ``ln1``, ``w_gate``, ...), which
 ``model.DenseBlock`` holds.  The casts are the reference's, so the two
@@ -164,27 +164,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is not None:
         raise ValueError("the blockwise path masks through position "
                          "sentinels; kv_len must be None")
-    return _flash(q, k, v, pos_q, pos_k, causal, window, q_block,
-                  kv_block).to(q.dtype)
+    return _flash(q, k, v, pos_q, pos_k, causal, window, q_block, kv_block)
 
 
-def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
-           kv_block: int) -> torch.Tensor:
-    """Blockwise online-softmax forward, in f32 (``_flash_fwd_impl`` of the
-    reference): queries padded to whole q blocks at position -1, keys to
-    whole kv blocks at position 2^30; one q block at a time, each over the
-    kv blocks in turn, so a step holds (B, NH, q_block, kv_block) scores.
-    Returns (B, Sq, NH, dh) f32."""
-    B, Sq, NH, dh = q.shape
-    Sk = k.shape[1]
-    scale = dh ** -0.5
+# ---------------------------------------------------------------------------
+# blockwise attention with a blockwise backward
+#
+# Autograd through the loops below would keep every (B, NH, q_block,
+# kv_block) probability block for the backward (the reference measured about
+# 2 GB a layer that way).  ``_Flash`` saves (q, k, v, positions, out, lse)
+# and its backward recomputes the probabilities block by block, as the
+# reference's custom_vjp (``_flash_fwd``/``_flash_bwd``) and the
+# FlashAttention-2 kernel do.
+# ---------------------------------------------------------------------------
+
+
+def _blockify(q, k, v, pos_q, pos_k, q_block: int, kv_block: int):
+    """q, k and v in f32, queries padded to whole q blocks at position -1,
+    keys and values to whole kv blocks at position 2^30."""
+    Sq, Sk = q.shape[1], k.shape[1]
     nq, nk = -(-Sq // q_block), -(-Sk // kv_block)
     qp = F.pad(q.float(), (0, 0, 0, 0, 0, nq * q_block - Sq))
-    pq = F.pad(pos_q, (0, nq * q_block - Sq), value=-1)
     kp = F.pad(k.float(), (0, 0, 0, 0, 0, nk * kv_block - Sk))
     vp = F.pad(v.float(), (0, 0, 0, 0, 0, nk * kv_block - Sk))
+    pq = F.pad(pos_q, (0, nq * q_block - Sq), value=-1)
     pk = F.pad(pos_k, (0, nk * kv_block - Sk), value=UNWRITTEN)
-    out = torch.empty((B, nq * q_block, NH, dh), dtype=torch.float32,
+    return qp, kp, vp, pq, pk, nq, nk
+
+
+def _flash_fwd_impl(q, k, v, pos_q, pos_k, causal: bool, window: int,
+                    q_block: int, kv_block: int):
+    """Blockwise online-softmax forward in f32 (the reference's
+    ``_flash_fwd_impl``): one q block at a time, each over the kv blocks in
+    turn, so a step holds (B, NH, q_block, kv_block) scores.  Returns out
+    (B, Sq, NH, dh) f32 and the log-sum-exp of each row (B, NH, Sq)."""
+    B, Sq, NH, dh = q.shape
+    scale = dh ** -0.5
+    qp, kp, vp, pq, pk, nq, nk = _blockify(q, k, v, pos_q, pos_k, q_block,
+                                           kv_block)
+    out = torch.empty(qp.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, NH, nq * q_block), dtype=torch.float32,
                       device=q.device)
     for i in range(nq):
         qs = slice(i * q_block, (i + 1) * q_block)
@@ -206,9 +225,98 @@ def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
             acc = acc * corr[..., None] + torch.einsum("bhqt,bthd->bhqd", p,
                                                        vp[:, ks])
             m = m2
-        acc = acc / torch.clamp(l[..., None], min=1e-30)
-        out[:, qs] = acc.transpose(1, 2)
-    return out[:, :Sq]
+        l = torch.clamp(l, min=1e-30)
+        out[:, qs] = (acc / l[..., None]).transpose(1, 2)
+        lse[:, :, qs] = m + torch.log(l)
+    return out[:, :Sq], lse[:, :, :Sq]
+
+
+def _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout, causal: bool,
+                    window: int, q_block: int, kv_block: int):
+    """The reference's ``_flash_bwd``: with D = rowsum(dout * out), a dQ
+    pass over the q blocks (each reducing over the kv blocks), then a dK/dV
+    pass over the kv blocks (each reducing over the q blocks), each
+    recomputing P = exp(S - lse) a block at a time.  Returns f32 dq, dk,
+    dv."""
+    B, Sq, NH, dh = q.shape
+    Sk = k.shape[1]
+    scale = dh ** -0.5
+    qp, kp, vp, pq, pk, nq, nk = _blockify(q, k, v, pos_q, pos_k, q_block,
+                                           kv_block)
+    pad = nq * q_block - Sq
+    do = F.pad(dout.float(), (0, 0, 0, 0, 0, pad))
+    lse = F.pad(lse, (0, pad))
+    D = F.pad(torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float()),
+              (0, pad))
+
+    def blocks(i: int, j: int):
+        """P and dS = P * (dP - D) of one (q block, kv block) pair, each
+        (B, NH, q_block, kv_block), built in place: two blocks live."""
+        qs = slice(i * q_block, (i + 1) * q_block)
+        ks = slice(j * kv_block, (j + 1) * kv_block)
+        p = torch.einsum("bqhd,bthd->bhqt", qp[:, qs] * scale, kp[:, ks])
+        p += _mask_bias(pq[:, qs], pk[:, ks], None, causal, window)[:, None]
+        p.sub_(lse[:, :, qs, None]).exp_()
+        ds = torch.einsum("bqhd,bthd->bhqt", do[:, qs], vp[:, ks])
+        ds.sub_(D[:, :, qs, None]).mul_(p)
+        return p, ds
+
+    dq = torch.empty_like(qp)
+    for i in range(nq):
+        qs = slice(i * q_block, (i + 1) * q_block)
+        acc = torch.zeros((B, q_block, NH, dh), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            ks = slice(j * kv_block, (j + 1) * kv_block)
+            ds = blocks(i, j)[1]
+            acc += torch.einsum("bhqt,bthd->bqhd", ds, kp[:, ks]) * scale
+            del ds
+        dq[:, qs] = acc
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    for j in range(nk):
+        ks = slice(j * kv_block, (j + 1) * kv_block)
+        dk_a = torch.zeros((B, kv_block, NH, dh), dtype=torch.float32,
+                           device=q.device)
+        dv_a = torch.zeros_like(dk_a)
+        for i in range(nq):
+            qs = slice(i * q_block, (i + 1) * q_block)
+            p, ds = blocks(i, j)
+            dv_a += torch.einsum("bhqt,bqhd->bthd", p, do[:, qs])
+            dk_a += torch.einsum("bhqt,bqhd->bthd", ds, qp[:, qs]) * scale
+            del p, ds
+        dk[:, ks], dv[:, ks] = dk_a, dv_a
+    return dq[:, :Sq], dk[:, :Sk], dv[:, :Sk]
+
+
+class _Flash(torch.autograd.Function):
+    """Blockwise attention whose backward recomputes the probabilities;
+    positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_q, pos_k, causal, window, q_block,
+                kv_block):
+        out, lse = _flash_fwd_impl(q, k, v, pos_q, pos_k, causal, window,
+                                   q_block, kv_block)
+        ctx.save_for_backward(q, k, v, pos_q, pos_k, out, lse)
+        ctx.blocking = (causal, window, q_block, kv_block)
+        return out.to(q.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, pos_q, pos_k, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout,
+                                     *ctx.blocking)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
+           kv_block: int) -> torch.Tensor:
+    """Blockwise attention (q, k and v at the same head count), in q's
+    dtype, differentiable in q, k and v."""
+    return _Flash.apply(q, k, v, pos_q, pos_k, causal, window, q_block,
+                        kv_block)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Model assembly for serving, in PyTorch: parameter init, the weights of
-a JAX checkpoint, prefill and decode with a KV cache, for the dense family.
+"""Model assembly, in PyTorch: parameter init, the weights of a JAX
+checkpoint and back, the training loss, prefill and decode with a KV cache,
+for the dense family.
 
 Counterpart of the dense branches of ``repro/models/model.py``.
 Conventions, as the reference's:
@@ -13,22 +14,33 @@ Conventions, as the reference's:
   * the cache is {"k", "v": (L, B, S, KV, dh), "pos": (L, B, S) int32},
     unwritten slots at position 2^30, and a sliding-window config keeps a
     ring of ``min(cache_len, swa_window)`` slots.  Prefill and decode write
-    it in place and return it.
+    it in place and return it;
+  * the losses ignore label -1, and the cross-entropy runs in sequence
+    chunks of ``CE_CHUNK``;
+  * a parameter tree (``param_tree``) is a dict of the top weights with
+    ``"blocks"`` a list of one dict a layer; ``stacked`` turns such a tree
+    (of weights, gradients or optimizer moments) into the JAX package's
+    layout, ``"blocks"`` a dict of (L, ...) leaves, and ``unstacked`` back.
 
 The moe, vlm, ssm, hybrid and audio families are not ported yet: building
 or running one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import layers
 from .config import ModelConfig
 from ..core.select import as_device_tensor, require_device
+from ..pytree import tree_map
+
+CE_CHUNK = 256
 
 _NOT_PORTED = {
     "vlm": "ROADMAP.md Queue 1 item 6: the vlm family (apply_mrope, "
@@ -164,17 +176,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
-                      device="cuda") -> Transformer:
-    """The JAX parameter pytree of ``repro.models.model.init_params`` (dense
-    family), given as numpy arrays, as a ``Transformer`` on ``device``, bit
-    for bit.  bf16 leaves may be ml_dtypes arrays or their uint16 bits;
-    ``tree["blocks"]`` holds the stacked (L, ...) leaves."""
-    model = Transformer(cfg, device)
+def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
+    """Copy a parameter tree in the JAX package's layout (``tree["blocks"]``
+    holds the stacked (L, ...) leaves) into ``params``, bit for bit.  Leaves
+    are tensors or numpy arrays; bf16 numpy leaves may be ml_dtypes arrays
+    or their uint16 bits."""
+    cfg = params.cfg
 
     def load(dst: torch.Tensor, a) -> None:
-        a = np.asarray(a)
-        if a.dtype == np.uint16:
+        if isinstance(a, np.ndarray) and a.dtype == np.uint16:
             t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
         else:
             t = as_device_tensor(a, "cpu")
@@ -187,16 +197,162 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     if set(tree) != expect:
         raise ValueError(f"parameter tree has {sorted(tree)}, expected "
                          f"{sorted(expect)}")
-    for name, w in model.p.items():
+    for name, w in params.p.items():
         load(w, tree[name])
     blocks = tree["blocks"]
     if set(blocks) != set(_block_shapes(cfg)):
         raise ValueError(f"blocks have {sorted(blocks)}, expected "
                          f"{sorted(_block_shapes(cfg))}")
-    for i, block in enumerate(model.blocks):
+    for i, block in enumerate(params.blocks):
         for name, w in block.p.items():
-            load(w, np.asarray(blocks[name])[i])
-    return model
+            load(w, blocks[name][i])
+    return params
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                      device="cuda") -> Transformer:
+    """The JAX parameter pytree of ``repro.models.model.init_params`` (dense
+    family), given as numpy arrays, as a ``Transformer`` on ``device``, bit
+    for bit.  bf16 leaves may be ml_dtypes arrays or their uint16 bits;
+    ``tree["blocks"]`` holds the stacked (L, ...) leaves."""
+    return load_params(Transformer(cfg, device), tree)
+
+
+def param_tree(params: Transformer) -> Dict[str, Any]:
+    """The model's parameters as a tree: the top weights by name and
+    ``"blocks"``, a list of one dict a layer.  The leaves are the model's
+    own ``nn.Parameter``s."""
+    tree: Dict[str, Any] = dict(params.p.items())
+    tree["blocks"] = [dict(block.p.items()) for block in params.blocks]
+    return tree
+
+
+def stacked(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """A tree shaped as ``param_tree`` (weights, gradients or moments) in
+    the JAX package's layout: ``"blocks"`` a dict of (L, ...) leaves.  The
+    leaves are detached copies, on ``device`` if given (else where they
+    are)."""
+    def to(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+        return t.detach().to(t.device if device is None else device,
+                             copy=copy)
+
+    out = {name: to(t, copy=True) for name, t in tree.items()
+           if name != "blocks"}
+    layers_ = tree["blocks"]
+    out["blocks"] = {name: torch.stack([to(layer[name]) for layer in layers_])
+                     for name in layers_[0]}
+    return out
+
+
+def unstacked(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``stacked``: ``"blocks"`` as a list of one dict a
+    layer, whose leaves are views of the stacked ones."""
+    out = {name: t for name, t in tree.items() if name != "blocks"}
+    blocks = tree["blocks"]
+    L = len(next(iter(blocks.values())))
+    out["blocks"] = [{name: t[i] for name, t in blocks.items()}
+                     for i in range(L)]
+    return out
+
+
+def params_to_numpy(tree) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: a ``Transformer``, or a tree
+    shaped as its ``param_tree`` (its gradients, say), as numpy arrays in
+    the JAX package's stacked layout.  bf16 leaves come as their uint16
+    bits."""
+    if isinstance(tree, Transformer):
+        tree = param_tree(tree)
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return tree_map(host, stacked(tree, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# forward (training / scoring)
+# ---------------------------------------------------------------------------
+
+
+# the matmuls without a batch dimension (the projections and the MLP),
+# whose outputs ``remat="dots"`` keeps, as JAX's
+# ``dots_with_no_batch_dims_saveable``; the attention's batched products
+# (``bmm``) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(block: DenseBlock, cfg: ModelConfig):
+    """The block as the backward sees it: ``"none"`` keeps every
+    activation; ``"nothing_saveable"`` keeps the block's input and reruns
+    its forward in the backward; ``"dots"`` also keeps the outputs of its
+    non-batched matmuls."""
+    if cfg.remat == "none":
+        return block
+    if cfg.remat == "nothing_saveable":
+        return functools.partial(ckpt.checkpoint, block, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, block, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def _run_decoder_train(params: Transformer, x: torch.Tensor,
+                       cfg: ModelConfig, positions: torch.Tensor):
+    """Every block in turn under the config's remat policy; returns the
+    residual stream and the auxiliary loss (0: the dense family has
+    none)."""
+    for block in params.blocks:
+        x = _remat(block, cfg)(x, positions=positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = CE_CHUNK
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over labels >= 0, a chunk of ``chunk`` positions
+    at a time: S padded to whole chunks with label -1, each chunk's logits
+    ``(xb @ head)`` taken to f32, logsumexp - gold.  Returns (loss, the
+    int32 count of labels counted)."""
+    B, S, _ = x.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+    for c in range(nc):
+        xb = x[:, c * chunk:(c + 1) * chunk]
+        lb = labels[:, c * chunk:(c + 1) * chunk]
+        logits = (xb @ head).float()
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, lb.clamp(min=0).long()[..., None])[..., 0]
+        valid = lb >= 0
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum(dtype=torch.int32)
+    return tot / torch.clamp(cnt, min=1), cnt
+
+
+def forward_loss(params: Transformer, batch: Mapping[str, torch.Tensor],
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Training forward: the mean cross-entropy of ``batch["labels"]``
+    (-1 ignored) after ``batch["tokens"]``, and {"ce", "aux", "tokens"}.
+    Differentiable in the model's parameters where they require grad."""
+    _require_dense(cfg)
+    x, positions = _embed_inputs(params, batch)
+    x, aux = _run_decoder_train(params, x, cfg, positions)
+    x = layers.norm(x, params.p, cfg, "final_norm")
+    loss, n_tok = chunked_ce_loss(x, params.p["head"], batch["labels"])
+    return loss, {"ce": loss, "aux": aux, "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +382,8 @@ def _layer_cache(cache: Dict[str, torch.Tensor], i: int) -> dict:
 
 
 def _embed_inputs(params: Transformer, batch: Mapping[str, torch.Tensor]):
-    """Token embeddings and positions 0..S-1 (text only)."""
+    """Token embeddings and positions 0..S-1 (text only; the gather's
+    backward adds each position's gradient into its token's row)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params.p["embed"][tokens.long()]

@@ -1,8 +1,8 @@
 """GK Select over pytrees of tensors, and per-channel exact quantiles.
 
 Counterpart of ``repro/optim/quantile_ops.py``.  A pytree is a nested dict,
-list or tuple of tensors (``None`` is an empty subtree); its leaves are
-taken in the JAX order: dicts by sorted key, sequences in order.
+list or tuple of tensors (``repro_torch.pytree``); its leaves are taken in
+the JAX order.
 
 ``pytree_exact_quantile`` treats every chunk of every leaf as one GK Select
 "partition": per-chunk sample sketches are built leaf by leaf (no
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, List
+from typing import Callable
 
 import torch
 
@@ -24,32 +24,10 @@ from ..core import local_ops
 from ..core.grouped import gk_select_grouped
 from ..core.sketch import local_sample_sketch
 from ..kernels.ref import from_sortable_u32, to_sortable_u32, u32_as_int64
+from ..pytree import leaves as tree_leaves, tree_map
 
 __all__ = ["pytree_exact_quantile", "pytree_radix_quantile",
            "channelwise_exact_quantile", "quantile_clip_by_value"]
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """The leaves of a nested dict/list/tuple, in ``jax.tree.leaves``
-    order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [l for t in tree for l in tree_leaves(t)]
-    return [tree]
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` over every leaf, keeping the structure."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
 
 
 def _leaf_chunks(leaf: torch.Tensor, chunk: int):
@@ -136,7 +114,9 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
     (``bits_per_pass`` bits a pass, 2^b bucket bounds against one read of
     each chunk).  Ranks are exact two-limb (hi, lo) base-2^16 int32
     integers, as the reference's: per-chunk counts stay < 2^21 and limb
-    sums < 2^31.  Keys are held as int64 (uint32 arithmetic, wrap
+    sums < 2^31.  A leaf longer than a chunk of 2^20 keys is padded to
+    whole chunks, as the reference pads every leaf; a shorter one is one
+    row of its own length (the same counts).  Keys are held as int64 (uint32 arithmetic, wrap
     included, masked to 32 bits).  Returns a 0-d f32 tensor."""
     leaves = [transform(l).to(torch.float32) for l in tree_leaves(tree)]
     if not leaves:
@@ -147,6 +127,8 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
 
     def leaf_chunks(l):
         u = u32_as_int64(to_sortable_u32(l.reshape(-1)))
+        if u.numel() <= _RADIX_CHUNK:
+            return u[None]          # one row, unpadded: the same counts
         pad = (-u.numel()) % _RADIX_CHUNK
         if pad:
             # pad key 0xFFFFFFFE never satisfies (u <= mid): mid < 2^32 - 2

@@ -47,8 +47,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.launch.ingest_pool, repro_torch.launch.serve, "
             "repro_torch.models.config, repro_torch.models.layers, "
             "repro_torch.models.model, repro_torch.configs, "
-            "repro_torch.optim.quantile_ops, "
-            "repro_torch.checkpoint.checkpoint\n"
+            "repro_torch.optim.quantile_ops, repro_torch.optim.adamw, "
+            "repro_torch.checkpoint.checkpoint, repro_torch.pytree, "
+            "repro_torch.data.pipeline, "
+            "repro_torch.distributed.fault_tolerance, "
+            "repro_torch.launch.steps, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
@@ -85,7 +88,9 @@ def test_layout_mirrors_the_jax_package():
                 "launch/ingest_pool.py", "launch/serve.py",
                 "models/config.py", "models/layers.py", "models/model.py",
                 "configs/__init__.py", "optim/quantile_ops.py",
-                "checkpoint/checkpoint.py",
+                "optim/adamw.py", "checkpoint/checkpoint.py",
+                "data/pipeline.py", "distributed/fault_tolerance.py",
+                "launch/steps.py", "launch/train.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
                 "kernels/fused_select.py", "kernels/partition_count.py",
                 "kernels/band_count.py", "kernels/segmented_select.py",
@@ -98,7 +103,9 @@ def test_layout_mirrors_the_jax_package():
         assert hasattr(repro_torch, name), name
     for module in (repro_torch.core, repro_torch.launch,
                    repro_torch.checkpoint, repro_torch.optim,
-                   repro_torch.models, repro_torch.configs):
+                   repro_torch.models, repro_torch.configs,
+                   repro_torch.data, repro_torch.distributed,
+                   repro_torch.pytree):
         for name in module.__all__:
             assert hasattr(module, name), name
     # one module a published config, as in the JAX package
@@ -109,7 +116,11 @@ def test_layout_mirrors_the_jax_package():
         assert os.path.exists(os.path.join(PKG, rel)), rel
     assert set(repro_torch.optim.__all__) == {
         "pytree_exact_quantile", "pytree_radix_quantile",
-        "channelwise_exact_quantile", "quantile_clip_by_value"}
+        "channelwise_exact_quantile", "quantile_clip_by_value",
+        "AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
+        "compress_int8", "decompress_int8"}
+    assert {"save_checkpoint", "restore_checkpoint",
+            "restore_checkpoint_flat"} <= set(repro_torch.checkpoint.__all__)
     assert {"IngestPool", "StreamingCalibrator", "calibrate_int8_scale",
             "calibrate_int8_scales", "generate"} <= set(
                 repro_torch.launch.__all__)
@@ -170,6 +181,35 @@ def test_serving_entry_points_go_to_cuda_unless_cpu_is_asked(monkeypatch):
     assert calls[5](device="cpu")["k"].device.type == "cpu"
     assert calls[7](device="cpu").values.device.type == "cpu"
     assert calls[8](device="cpu").values.shape == (2, 8)
+
+
+def test_training_entry_points_go_to_cuda_unless_cpu_is_asked(monkeypatch,
+                                                              tmp_path):
+    from repro_torch import checkpoint, distributed
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("stablelm-1.6b").reduced()
+    checkpoint.save_checkpoint(str(tmp_path), 1, {"a": np.zeros(2)})
+    template = {"a": torch.empty(2, dtype=torch.float64, device="meta")}
+    calls = (
+        lambda **kw: train_loop(cfg, steps=1, global_batch=2, seq_len=8,
+                                log_every=0, **kw),
+        lambda **kw: checkpoint.restore_checkpoint(str(tmp_path), template,
+                                                   **kw),
+        lambda **kw: distributed.StragglerMonitor(**kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert len(calls[0](device="cpu")["losses"]) == 1
+    assert calls[1](device="cpu")[0]["a"].device.type == "cpu"
+    assert calls[2](device="cpu").service.device.type == "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "stablelm-1.6b", "--reduced", "--steps", "1"],
+        env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 
 def test_tensor_entry_points_run_where_the_tensor_lives():
