@@ -122,7 +122,33 @@
    Last, 8 prompts of 4096 tokens take the blockwise attention: the first
    layer's, against the direct path, within 1e-5 of max |out| and within
    its memory bound (one q block at a time), then the whole prefill.
-10. Drives the training path (``repro_torch.launch.train.train_loop``) on
+10. Serves the moe and vlm families the same way (``moe_serve_path``,
+   ``vlm_serve_path``): olmoe-1b-7b (16 layers, d_model 2048, 16 heads of
+   128, 64 experts of d_ff 1024, top-8, vocab 50304; 6.92 B bf16 weights)
+   and qwen2-vl-2b (28 layers, d_model 1536, 12 heads over 2 KV heads of
+   128, d_ff 8960, vocab 151936, M-RoPE; 1.78 B), at their published width
+   and depth from ``--seed``: 8 prompts of 512 positions (qwen2-vl's first
+   256 are N(0, 1) patch embeddings on a 16 x 16 grid of ``positions3``,
+   text j at (j, j, j)), 64 greedy tokens each, cache 576.  Decode after
+   ``prefill(S)`` against ``prefill(S + 1)`` and each against an f32
+   evaluation; the gate of 9 holds over the rows whose last position takes
+   the same experts in every layer in decode and prefill(S + 1), for
+   olmoe with every expert taking every token (as a decode step's
+   capacity does: served, prefill drops assignments and decode does not,
+   in the reference too), and the served numbers, the differing expert
+   choices (decode vs prefill, bf16 vs f32), the drops and the expert
+   loads are printed.  ``generate`` alone and with a fused
+   ``StreamingCalibrator``, in turns, 5 rounds after a warm-up, the same
+   tokens each time; the warm ``scale`` over every logit (25.8M and 77.8M
+   values) equal to a sort bit for bit, ``fused_select`` launched (every
+   count zeroed at the phase's start, read at its end).  For olmoe, the
+   first layer's ``moe_block`` on the prefill's 4096 tokens against every
+   expert evaluated on every token and picked by the same routing (within
+   2e-2 of max |y|), and its router's f32 product against f64 (within
+   1e-5).  Prints times beside bounds, the decode step's busy share, peak
+   memory and the phase's seconds; ``fused_select`` at each phase's chunk
+   joins 2's tally.
+11. Drives the training path (``repro_torch.launch.train.train_loop``) on
    stablelm-1.6b at its published width and depth (24 layers, d_model
    2048, 32 heads of 64, d_ff 5632, vocab 100352, LayerNorm with bias;
    1.64 B bf16 parameters from ``--seed``): 6 steps of 8 x 2048 Zipf(1.2)
@@ -143,11 +169,11 @@
    atol = 2e-4 and the restored state equal to the saved one bit for bit.
    The six kernels' launch counts are zeroed before this phase and read
    after it (``train_launches``; the training path launches none).
-11. Times each kernel at its path's shapes beside its bound, its plain
+12. Times each kernel at its path's shapes beside its bound, its plain
    version and the PyTorch calls that compute the same function, and prints
    one ``kernels`` JSON line with all six, each with its launches per
-   service query (the serve's ``scale`` queries among them) and on the
-   training path.
+   service query (the serve phases' ``scale`` queries among them) and on
+   the training path.
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -178,6 +204,8 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
+FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
+                ("vlm_serve_path", "qwen2-vl-2b"))
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (data sheet)
@@ -1867,14 +1895,26 @@ def _scale_query(cal, expect_fused: bool) -> tuple:
 def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     """Least time of one prefill at the card's peak rates: the bf16 matmuls
     (every layer's weights at each of the B x S positions, the head at the
-    last one) at the bf16 rate, and the f32 attention scores and sums over
-    the cache (the direct path) at the f32 rate."""
-    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    last one; a moe layer's experts over their padded (E, cap) buffers, as
+    the reference computes them; a vision_stub's patch projection) at the
+    bf16 rate, and the f32 attention scores and sums over the cache (the
+    direct path) and a moe layer's f32 router at the f32 rate."""
+    from repro_torch.models import moe
+
+    D, F, L, T = cfg.d_model, cfg.d_ff, cfg.n_layers, B * S
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    layer = D * (NH + 2 * KV) * dh + NH * dh * D + 3 * D * F
-    matmul = 2 * L * layer * B * S + 2 * D * cfg.vocab * B
-    attention = 4 * L * B * NH * S * cache_len * dh
-    return matmul / BF16_FLOPS_PER_S + attention / F32_FLOPS_PER_S
+    layer = D * (NH + 2 * KV) * dh + NH * dh * D
+    if cfg.family != "moe" or cfg.moe_dense_residual:
+        layer += (3 if cfg.mlp_type == "swiglu" else 2) * D * F
+    matmul = 2 * L * layer * T + 2 * D * cfg.vocab * B
+    f32 = 4 * L * B * NH * S * cache_len * dh
+    if cfg.family == "moe":
+        E = cfg.moe_experts
+        matmul += 2 * L * E * moe.capacity(T, cfg) * 3 * D * F
+        f32 += 2 * L * T * D * E
+    if cfg.modality == "vision_stub":
+        matmul += 2 * B * cfg.frontend_len * D * D
+    return matmul / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S
 
 
 def _long_prompt(params, cfg, seed: int) -> dict:
@@ -1894,7 +1934,7 @@ def _long_prompt(params, cfg, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda",
                          dtype=torch.int32)
-    x, pos = model._embed_inputs(params, {"tokens": toks})
+    x, pos, _ = model._embed_inputs(params.p, {"tokens": toks}, cfg)
     p = params.blocks[0].p
     h = layers.norm(x, p, cfg, "ln1")
     q = layers.apply_rope((h @ p["wq"]).reshape(B, S, NH, dh), pos,
@@ -1948,23 +1988,19 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @torch.no_grad()
-def _f32_logits(params, tokens, cfg) -> torch.Tensor:
-    """prefill's last logits for ``tokens`` with the same weights in f32:
-    each layer's weights are cast as it runs (no f32 copy of the model),
-    and every activation is f32."""
+def _f32_logits(params, batch, cfg) -> torch.Tensor:
+    """prefill's last logits for ``batch`` with the same weights in f32 (the
+    reference's model at ``param_dtype="float32"``): each layer's weights
+    are cast as it runs (no f32 copy of the model), and every activation is
+    f32, the patch embeddings and the moe routing included."""
     from repro_torch.models import layers, model
 
     f32 = dataclasses.replace(cfg, param_dtype="float32")
-    x, pos = model._embed_inputs(params, {"tokens": tokens})
-    x = x.float()
+    top = {name: w.float() for name, w in params.p.items()}
+    x, pos, pos3 = model._embed_inputs(top, batch, f32)
     for block in params.blocks:
         p = {name: w.float() for name, w in block.p.items()}
-        h, _ = layers.attn_block(p, layers.norm(x, p, f32, "ln1"), f32,
-                                 positions=pos)
-        x = x + h
-        x = x + layers.mlp_block(p, layers.norm(x, p, f32, "ln2"), f32)
-    top = {name: params.p[name].float() for name in params.p
-           if name != "embed"}
+        x, _ = model.block_fn(p, x, f32, positions=pos, positions3=pos3)
     return (layers.norm(x[:, -1], top, f32, "final_norm")
             @ top["head"]).float()
 
@@ -2006,7 +2042,7 @@ def serve_path(seed: int, tally) -> tuple:
         raise AssertionError("serve: non-finite logits")
     if step.shape != (B, cfg.vocab) or step.dtype != torch.float32:
         raise AssertionError(f"serve: logits {tuple(step.shape)} {step.dtype}")
-    f32 = _f32_logits(params, tokens, cfg)
+    f32 = _f32_logits(params, {"tokens": tokens}, cfg)
     consistency = {"decode_vs_prefill": _rel_err(step, full),
                    "decode_vs_f32": _rel_err(step, f32),
                    "prefill_vs_f32": _rel_err(full, f32)}
@@ -2166,7 +2202,345 @@ def serve_path(seed: int, tally) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 10. the training path: stablelm-1.6b through train_loop
+# 10. the moe and vlm families served at full width, calibrated
+# ---------------------------------------------------------------------------
+
+
+class _MoeTap:
+    """Wraps ``repro_torch.models.moe.moe_block`` while active: each call
+    records the experts its last position picks (B, k) and how many of
+    them it drops (B,), each expert's assignments (E,) and the capacity,
+    from ``route`` and ``dispatch`` on the same input (extra work, so taps
+    stay off the timed runs)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        moe, block = self.moe, self.moe.moe_block
+
+        def tapped(p, x, cfg):
+            B, S, D = x.shape
+            T = B * S
+            _, _, top_i = moe.route(p, x.reshape(T, D), cfg)
+            cap = moe.capacity(T, cfg)
+            d = moe.dispatch(top_i, cap, cfg.moe_experts)
+            keep = torch.empty_like(d.keep).scatter_(0, d.order, d.keep)
+            self.calls.append({
+                "picks": top_i.view(B, S, -1)[:, -1].sort(-1).values,
+                "dropped_last": (~keep.view(B, S, -1)[:, -1]).sum(-1),
+                "count": d.count, "cap": cap})
+            return block(p, x, cfg)
+
+        self.block, moe.moe_block = block, tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_block = self.block
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def _routing_differs(a: list, b: list) -> torch.Tensor:
+    """(B,) number of layers whose last-position experts differ."""
+    return sum((x["picks"] != y["picks"]).any(-1).long()
+               for x, y in zip(a, b))
+
+
+def _vision_extras(cfg, B: int, n: int, gen) -> dict:
+    """N(0, 1) f32 patch embeddings at the first ``frontend_len`` positions
+    (a square grid: (t, h, w) = (0, i // side, i % side)), text position j
+    after them at (j, j, j), as (3, B, n) ``positions3``."""
+    F = cfg.frontend_len
+    side = math.isqrt(F)
+    i = torch.arange(n, dtype=torch.int32, device="cuda")
+    p3 = torch.stack([i, i, i])
+    p3[0, :F] = 0
+    p3[1, :F] = i[:F] // side
+    p3[2, :F] = i[:F] % side
+    return {"patch_embeds": torch.randn((B, F, cfg.d_model), generator=gen,
+                                        device="cuda"),
+            "positions3": p3[:, None].expand(3, B, n).contiguous()}
+
+
+@torch.no_grad()
+def _moe_formula(params, batch, cfg) -> dict:
+    """The first layer's ``moe_block`` at full width on the prefill's
+    tokens against a direct evaluation with the same routing: every expert
+    on every token (E x T rows of bf16 hidden state), then each token's
+    kept experts by their gates, summed in f32.  Within 2e-2 of max |y|
+    (the CPU tests' bf16 share: both round each expert's output to bf16,
+    in other tilings, and the layer adds its gated terms in bf16).  Also
+    the router's product against f64: within 1e-5 of max |logit| (TF32
+    would give about 1e-3)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers, model, moe
+
+    p = params.blocks[0].p
+    x, pos, pos3 = model._embed_inputs(params.p, batch, cfg)
+    h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
+                             positions=pos, positions3=pos3)
+    xn = layers.norm(x + h, p, cfg, "ln2")
+    del x, h
+    y, _ = moe.moe_block(p, xn, cfg)
+    B, S, D = xn.shape
+    T, E = B * S, cfg.moe_experts
+    xt = xn.reshape(T, D)
+    logits = xt.float() @ p["router"]
+    exact = xt.double() @ p["router"].double()
+    router_err = float((logits - exact).abs().max() / exact.abs().max())
+    _, top_p, top_i = moe.route(p, xt, cfg)
+    cap = moe.capacity(T, cfg)
+    d = moe.dispatch(top_i, cap, E)
+    keep = torch.empty_like(d.keep).scatter_(0, d.order, d.keep).view(T, -1)
+    every = xt.expand(E, T, D)
+    hid = F.silu(torch.bmm(every, p["we_gate"])) * torch.bmm(every,
+                                                             p["we_up"])
+    out = torch.bmm(hid, p["we_down"])                    # (E, T, D)
+    hidden_bytes = hid.numel() * hid.element_size()
+    del hid, every
+    picked = out[top_i, torch.arange(T, device="cuda")[:, None]]
+    want = (picked.float() * torch.where(keep, top_p, 0.0)[..., None]).sum(1)
+    err = _rel_err(y.reshape(T, D).float(), want)
+    del out, picked
+    torch.cuda.empty_cache()
+    if not err <= 2e-2:
+        raise AssertionError(f"moe_block is {err} of max |y| off its formula")
+    if not router_err <= 1e-5:
+        raise AssertionError(f"the router's f32 product is {router_err} off "
+                             f"f64: not full f32")
+    return {"tokens": T, "capacity": cap, "rel_err": err, "tolerance": 2e-2,
+            "router_rel_err_vs_f64": router_err,
+            "dropped": int((~keep).sum()), "hidden_bytes": hidden_bytes,
+            "direct_flop": 2 * 3 * E * T * D * cfg.d_ff}
+
+
+def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
+                 gate: bool) -> tuple:
+    """Decode after prefill(S) against prefill(S + 1), and each against the
+    same weights in f32 (``_f32_logits``): (errors, a moe model's routing
+    record or None, the decode's cache).  A moe model's record counts, per
+    layer and row, the last position's experts that differ between decode
+    and prefill(S + 1) and between bf16 and f32, that position's
+    assignments dropped in prefill(S + 1), and prefill(S)'s drops and
+    expert loads.  With ``gate``, the decode must be no farther (1.5 x)
+    from the f32 evaluation than the prefill is, over the rows whose last
+    position takes the same experts in every layer in decode and prefill(S
+    + 1) (all rows outside the moe family): a differing expert is a
+    discrete change of that position's output, in both packages."""
+    from repro_torch.models import model
+
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    with _MoeTap() as tap:
+        _, cache = model.prefill(params, batch(S), cfg, cache_len=cache_len)
+        prefill_calls = tap.take()
+        step, cache = model.decode_step(params, tokens[:, S:], cache, at_s,
+                                        cfg)
+        step_calls = tap.take()
+        full, _ = model.prefill(params, batch(S + 1), cfg,
+                                cache_len=cache_len)
+        full_calls = tap.take()
+        f32 = _f32_logits(params, batch(S + 1), cfg)
+        f32_calls = tap.take()
+    for t in (step, full, f32):
+        if t.shape != (B, cfg.vocab) or not torch.isfinite(t).all():
+            raise AssertionError(f"{cfg.name}: bad logits {tuple(t.shape)}")
+    errs = {"decode_vs_prefill": _rel_err(step, full),
+            "decode_vs_f32": _rel_err(step, f32),
+            "prefill_vs_f32": _rel_err(full, f32)}
+    rows = torch.ones(B, dtype=torch.bool, device="cuda")
+    routing = None
+    if cfg.family == "moe":
+        differs = _routing_differs(step_calls, full_calls)
+        rows = differs == 0
+        routing = {
+            "capacity_factor": cfg.moe_capacity_factor,
+            "layers_x_rows": cfg.n_layers * B,
+            "differ_decode_vs_prefill": int(differs.sum()),
+            "differ_bf16_vs_f32": int(_routing_differs(full_calls,
+                                                       f32_calls).sum()),
+            "rows_routed_alike": int(rows.sum()),
+            "last_position_dropped_in_prefill": int(sum(
+                c["dropped_last"].sum() for c in full_calls)),
+            "prefill_capacity": prefill_calls[0]["cap"],
+            "prefill_dropped_per_layer": [
+                int((c["count"] - c["cap"]).clamp(min=0).sum())
+                for c in prefill_calls],
+            "prefill_load_min_max_per_layer": [
+                (int(c["count"].min()), int(c["count"].max()))
+                for c in prefill_calls]}
+        routing["prefill_dropped"] = sum(routing["prefill_dropped_per_layer"])
+    if gate:
+        if not rows.any():
+            raise AssertionError(f"{cfg.name}: no row routes alike in "
+                                 f"decode and prefill(S + 1)")
+        scale = f32.abs().max()
+        errs["rows_decode_vs_f32"] = float(
+            (step[rows] - f32[rows]).abs().max() / scale)
+        errs["rows_prefill_vs_f32"] = float(
+            (full[rows] - f32[rows]).abs().max() / scale)
+        if not errs["rows_decode_vs_f32"] <= 1.5 * errs["rows_prefill_vs_f32"]:
+            raise AssertionError(
+                f"{cfg.name}: decode is {errs['rows_decode_vs_f32']} of the "
+                f"logit scale off the f32 evaluation, more than 1.5 x the "
+                f"prefill's {errs['rows_prefill_vs_f32']}")
+    return errs, routing, cache
+
+
+def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
+    """``arch`` (the moe or the vlm family) at its published width and
+    depth, weights from ``--seed``: SERVE_B prompts of SERVE_PROMPT
+    positions (a vision_stub's first ``frontend_len`` are patch
+    embeddings), SERVE_GEN greedy tokens each, the logits calibrated by a
+    fused ``StreamingCalibrator`` whose warm ``scale`` must equal a sort on
+    the card bit for bit.  Every launch count is zeroed at the start and
+    read at the end; ``fused_select`` must have launched."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.kernels import fused_select as fs, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    cfg = get_config(arch)
+    is_moe = cfg.family == "moe"
+    B, S, G = SERVE_B, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    extras = (_vision_extras(cfg, B, S + 1, gen)
+              if cfg.modality == "vision_stub" else {})
+
+    def batch(n: int) -> dict:
+        out = {"tokens": tokens[:, :n]}
+        for key, t in extras.items():
+            out[key] = t[..., :n] if key == "positions3" else t
+        return out
+
+    prompts = tokens[:, :S]
+    prompt_extras = {key: t for key, t in batch(S).items() if key != "tokens"}
+    at_s = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    params, init_s = _sync_time(lambda: model.init_params(cfg, seed,
+                                                          device="cuda"))
+
+    # decode after prefill(S) against prefill(S + 1), each against the same
+    # weights in f32: as served, and for a moe model also with every
+    # expert taking every token (as a decode step's capacity does), where
+    # the gate applies
+    consistency, routing, cache = _consistency(params, cfg, batch, tokens,
+                                               at_s, S + G, gate=not is_moe)
+    if is_moe:
+        E, k = cfg.moe_experts, cfg.moe_top_k
+        dropless = dataclasses.replace(cfg, moe_capacity_factor=E / k)
+        consistency["dropless"], routing["dropless"], _ = _consistency(
+            params, dropless, batch, tokens, at_s, S + G, gate=True)
+    moe_formula = _moe_formula(params, batch(S), cfg) if is_moe else None
+    n_params = sum(w.numel() for w in params.parameters())
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    _, prefill_s = _median_s(lambda: model.prefill(
+        params, batch(S), cfg, cache_len=S + G))
+    profile = _profile(lambda: model.decode_step(params, tokens[:, S:],
+                                                 cache, at_s, cfg))
+    del cache
+    torch.cuda.empty_cache()
+
+    # generate alone and with a fused calibrator, in turns (one warm-up
+    # round); the tokens must not change
+    def run(cal=None):
+        return serve.generate(cfg, params, prompts, gen_len=G,
+                              extras=prompt_extras, calibrator=cal)
+
+    runs = {"alone": [], "sync": []}
+    toks, cal = None, None
+    for _ in range(TIMED_RUNS + 1):
+        got, t = _sync_time(run)
+        runs["alone"].append(t)
+        if toks is not None and not torch.equal(got, toks):
+            raise AssertionError(f"{name}: greedy tokens changed between "
+                                 f"runs")
+        toks = got
+        cal = _tapped_calibrator(fused=True)
+        got, t = _sync_time(lambda: run(cal))
+        runs["sync"].append(t)
+        if not torch.equal(got, toks):
+            raise AssertionError(f"{name}: tokens changed with a calibrator")
+    runs = {k: v[1:] for k, v in runs.items()}
+    gen_s, gen_sync_s = (statistics.median(runs[k]) for k in runs)
+    launches = {k: c for k, c in K.launches().items() if c}
+
+    # the warm scale against a sort of every observed |logit|
+    observed = torch.cat([t.reshape(-1) for t in cal.seen]).abs()
+    n = observed.numel()
+    k = local_ops.target_rank(n, SERVE_Q)
+    want = torch.sort(observed).values[k - 1].clone()
+    del observed
+    if cal.observed("logits") != n:
+        raise AssertionError(f"{name}: observed {cal.observed('logits')} "
+                             f"!= {n}")
+    got, per_query = _scale_query(cal, True)
+    _check_bits(f"{name} scale", got, want)
+    for kname, c in per_query["launches"].items():
+        launches[kname] = launches.get(kname, 0) + c
+    if launches.get("fused_select", 0) < 1:
+        raise AssertionError(f"{name}: fused_select never launched")
+    again, scale_s = _median_s(lambda: cal.scale("logits"))
+    _check_bits(f"{name} scale again", again, want)
+
+    # fused_select at this phase's chunk against its plain version
+    svc = cal.service
+    slot = svc._names["logits"]
+    chunk = svc._chunks_for(slot)[0][None]
+    pivot = sk.sketch_query_rank(svc._row_state(slot), k)
+    cap = min(chunk.shape[1], _warm_phases(svc, "logits", SERVE_Q)["cap"])
+    tally.add("fused_select", _same_bits(fs.fused_select(chunk, pivot, cap),
+                                         ref.fused_select_ref(chunk, pivot,
+                                                              cap)),
+              f"{name} chunk 1 x {chunk.shape[1]} cap={cap}")
+    cal.close()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cal
+    torch.cuda.empty_cache()
+
+    decode_s = (gen_s - prefill_s) / (G - 1)
+    return {
+        "arch": arch, "family": cfg.family, "params": n_params,
+        "active_params_per_token": cfg.active_param_count(),
+        "weight_bytes": weight_bytes, "batch": B, "prompt_len": S,
+        "patch_positions": cfg.frontend_len if extras else 0,
+        "gen_len": G, "cache_len": S + G, "kv_cache_bytes": cache_bytes,
+        "init_s": init_s, "consistency_rel_err": consistency,
+        "routing": routing, "moe_formula": moe_formula,
+        "prefill_median_s": prefill_s,
+        "prefill_bound_s": _prefill_bound_s(cfg, B, S, S + G),
+        "generate_median_s": gen_s, "generate_runs_s": runs,
+        "decode_s_per_step": decode_s,
+        "decode_bound_s_per_step": (weight_bytes + cache_bytes)
+        / HBM_BYTES_PER_S,
+        "decode_busy_share": profile.get("device_busy_share"),
+        "tokens_per_s": B * G / gen_s,
+        "generate_calibrated_sync_median_s": gen_sync_s,
+        "calibration_s_per_step_sync": (gen_sync_s - gen_s) / G,
+        "observed_values": n, "q": SERVE_Q, "scale": float(want),
+        "scale_fused_median_s": scale_s, "per_query": per_query,
+        "phase_launches": launches, "peak_memory_bytes": peak,
+        "allocated_before_bytes": base, "profile_decode_step": profile,
+        "wall_s": time.perf_counter() - t_phase,
+    }, {"scale_fused": per_query}
+
+
+# ---------------------------------------------------------------------------
+# 11. the training path: stablelm-1.6b through train_loop
 # ---------------------------------------------------------------------------
 
 
@@ -2256,7 +2630,7 @@ def _flash_backward_check(params, cfg, batch) -> dict:
     if S * S <= cfg.attn_q_block * cfg.attn_kv_block * 2:
         raise AssertionError("train flash check: not the blockwise path")
     with torch.no_grad():
-        x, pos = model._embed_inputs(params, batch)
+        x, pos, _ = model._embed_inputs(params.p, batch, cfg)
         p = params.blocks[0].p
         h = layers.norm(x, p, cfg, "ln1")
         q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
@@ -2536,6 +2910,15 @@ def main() -> int:
             f"serve_path.{query}": counts["launches"][row["name"]]
             for query, counts in serve_launches.items()
             if row["name"] in counts["launches"]})
+    for name, arch in FAMILY_ARCHS:
+        result, family_launches = family_serve_path(name, arch, args.seed,
+                                                    tally)
+        print(json.dumps({name: result}), flush=True)
+        for row in kernels:
+            row["service_launches_per_query"].update({
+                f"{name}.{query}": counts["launches"][row["name"]]
+                for query, counts in family_launches.items()
+                if row["name"] in counts["launches"]})
     K.reset_launches()
     result = train_path(args.seed)
     print(json.dumps({"train_path": result}), flush=True)

@@ -93,23 +93,23 @@ def _hidden(params, tokens, cfg, S, cache_len):
     """prefill(S) then one decode step, and prefill(S + 1), by hand: the
     logits of both and each layer's output at position S."""
     B = tokens.shape[0]
-    x, pos = model._embed_inputs(params, {"tokens": tokens[:, :S]})
+    x, pos, _ = model._embed_inputs(params.p, {"tokens": tokens[:, :S]}, cfg)
     cache = model.init_cache(cfg, B, cache_len, device=params.device)
     for i, block in enumerate(params.blocks):
-        x = block(x, positions=pos, cache=model._layer_cache(cache, i))
+        x, _ = block(x, positions=pos, cache=model._layer_cache(cache, i))
     at = torch.full((B,), S, dtype=torch.int32, device=params.device)
     x = params.p["embed"][tokens[:, S:].long()]
     step_h = []
     for i, block in enumerate(params.blocks):
-        x = block(x, positions=at[:, None], cache=model._layer_cache(cache, i),
-                  kv_len=at)
+        x, _ = block(x, positions=at[:, None],
+                     cache=model._layer_cache(cache, i), kv_len=at)
         step_h.append(x[:, 0])
     step = model._logits(params, x, cfg)
-    x, pos = model._embed_inputs(params, {"tokens": tokens})
+    x, pos, _ = model._embed_inputs(params.p, {"tokens": tokens}, cfg)
     cache = model.init_cache(cfg, B, cache_len, device=params.device)
     full_h = []
     for i, block in enumerate(params.blocks):
-        x = block(x, positions=pos, cache=model._layer_cache(cache, i))
+        x, _ = block(x, positions=pos, cache=model._layer_cache(cache, i))
         full_h.append(x[:, -1])
     full = model._logits(params, x[:, -1:], cfg)
     return step, full, step_h, full_h

@@ -12,10 +12,11 @@ kernels  the Hopper kernels, their plain PyTorch versions, the device
          points
 launch   the streaming ``QuantileService``, its ``IngestPool`` and the
          ``StreamingCalibrator``; ``launch.serve``: prefill + decode of a
-         dense model with exact int8 calibration; ``launch.train``: the
-         training loop (``launch.steps`` builds its step)
-models   the dense family's layers and assembly, with its training loss;
-         ``configs`` its registry
+         dense, vlm or moe model with exact int8 calibration;
+         ``launch.train``: the training loop (``launch.steps`` builds its
+         step)
+models   the layers, routed experts and assembly of the dense, vlm and moe
+         families, with their training loss; ``configs`` the registry
 optim    AdamW, and exact quantiles over pytrees and channels (the
          gradient clip, int8 compression, per-channel scales)
 data     the synthetic, index-addressable token pipeline

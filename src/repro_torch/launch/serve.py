@@ -2,7 +2,8 @@
 and exact-quantile int8 activation calibration (the paper's primitive
 applied to quantized serving).
 
-Counterpart of ``repro/launch/serve.py``, for the dense family.
+Counterpart of ``repro/launch/serve.py``, for the dense, vlm and moe
+families.
 Calibration comes in two shapes:
 
   * one-shot: ``calibrate_int8_scale`` / ``calibrate_int8_scales`` run a
@@ -18,12 +19,14 @@ Usage:
   python -m repro_torch.launch.serve --arch granite-8b --reduced \\
       --device cpu --prompt-len 32 --gen-len 16 --batch 4 --calibrate \\
       [--ingest-threads 4]
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced \\
+      --device cpu --calibrate          # qwen2-vl-2b: zero patch embeds
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -65,11 +68,13 @@ def calibrate_int8_scales(activations, axis: int = -1, q: float = 0.999,
 
 @torch.no_grad()
 def generate(cfg: ModelConfig, params: model.Transformer,
-             prompts: torch.Tensor, *, gen_len: int, greedy: bool = True,
-             seed: int = 0,
+             prompts: torch.Tensor, *, gen_len: int,
+             extras: Optional[Mapping[str, torch.Tensor]] = None,
+             greedy: bool = True, seed: int = 0,
              calibrator: Optional[StreamingCalibrator] = None) -> torch.Tensor:
     """Batched prefill + autoregressive decode of ``gen_len`` tokens:
-    (B, gen_len) int32 on the model's device.
+    (B, gen_len) int32 on the model's device.  ``extras`` join the
+    prefill's batch (a vision_stub's ``patch_embeds``, ``positions3``).
 
     ``calibrator`` observes the logits of the prefill and of every decode
     step through ``observe_many``: one ingest tick per step (a queue
@@ -79,8 +84,10 @@ def generate(cfg: ModelConfig, params: model.Transformer,
     reproducible but not the JAX package's."""
     B, S = prompts.shape
     prompts = prompts.to(params.device)
-    logits, cache = model.prefill(params, {"tokens": prompts}, cfg,
-                                  cache_len=S + gen_len)
+    batch = {"tokens": prompts}
+    for name, t in (extras or {}).items():
+        batch[name] = t.to(params.device)
+    logits, cache = model.prefill(params, batch, cfg, cache_len=S + gen_len)
     if calibrator is not None:
         calibrator.observe_many({"logits": logits})
     gen = torch.Generator(device=params.device).manual_seed(int(seed))
@@ -129,6 +136,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
+    extras = {}
+    if cfg.modality == "vision_stub":
+        extras["patch_embeds"] = torch.zeros(
+            (args.batch, cfg.frontend_len, cfg.d_model), device=device)
     calibrator = (StreamingCalibrator(q=0.999, device=device,
                                       ingest_threads=args.ingest_threads)
                   if args.calibrate else None)
@@ -136,7 +147,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = generate(cfg, params, prompts, gen_len=args.gen_len,
-                    calibrator=calibrator)
+                    extras=extras, calibrator=calibrator)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

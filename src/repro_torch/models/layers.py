@@ -1,6 +1,7 @@
-"""Core neural layers, in PyTorch: norms, rotary embeddings, grouped-query
-attention (the decode path, the direct path and a blockwise online-softmax
-path for long sequences, with a blockwise backward) and the MLPs.
+"""Core neural layers, in PyTorch: norms, rotary embeddings (RoPE and
+Qwen2-VL's M-RoPE), grouped-query attention (the decode path, the direct
+path and a blockwise online-softmax path for long sequences, with a
+blockwise backward) and the MLPs.
 
 Counterpart of ``repro/models/layers.py``.  Layers are plain
 functions of tensors; a block's weights come in a mapping by the JAX names
@@ -85,6 +86,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_angles(positions3: torch.Tensor, d_head: int, theta: float,
+                 sections: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's M-RoPE angles: the d_head/2 frequency slots split into
+    the (temporal, height, width) ``sections``, each slot rotated by its
+    section's stream of ``positions3`` (3, B, S).  cos and sin, each (B, S,
+    1, d_head/2) f32; equal streams give ``rope_angles`` bit for bit."""
+    if sum(sections) != d_head // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"d_head/2 = {d_head // 2} slots")
+    inv = rope_freqs(d_head, theta, positions3.device)     # (dh/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long)
+                     for i, s in enumerate(sections)]).to(positions3.device)
+    pos = positions3.float()[sec]                          # (dh/2, B, S)
+    ang = pos.permute(1, 2, 0) * inv                       # (B, S, dh/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """x: (B, S, H, dh) rotated by M-RoPE over positions3 (3, B, S) int32
+    (equal streams for text)."""
+    return apply_rope(x, None, theta, angles=mrope_angles(
+        positions3, x.shape[-1], theta, sections))
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +353,7 @@ def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
 
 def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                cfg: ModelConfig, *, positions: torch.Tensor,
+               positions3: Optional[torch.Tensor] = None,
                cache: Optional[dict] = None,
                kv_len: Optional[torch.Tensor] = None,
                angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -342,12 +370,17 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     not see their own window.  ``angles`` (``rope_angles`` of
     ``positions``) and ``bias`` (the attention's ``_mask_bias`` over the
     cache after this call's write) may come precomputed, as a decode step
-    passes them to every layer."""
+    passes them to every layer.  An M-RoPE config with ``positions3``
+    (3, B, S) rotates by ``mrope_angles``; the mask still reads
+    ``positions``."""
     B, S, D = x.shape
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ p["wq"]).reshape(B, S, NH, dh)
     k = (x @ p["wk"]).reshape(B, S, KV, dh)
     v = (x @ p["wv"]).reshape(B, S, KV, dh)
+    if angles is None and cfg.mrope and positions3 is not None:
+        angles = mrope_angles(positions3, dh, cfg.rope_theta,
+                              cfg.mrope_sections)
     angles = angles or rope_angles(positions, dh, cfg.rope_theta)
     q = apply_rope(q, positions, cfg.rope_theta, angles=angles)
     k = apply_rope(k, positions, cfg.rope_theta, angles=angles)

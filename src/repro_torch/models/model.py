@@ -1,15 +1,23 @@
 """Model assembly, in PyTorch: parameter init, the weights of a JAX
 checkpoint and back, the training loss, prefill and decode with a KV cache,
-for the dense family.
+for the dense, vlm and moe families (every family built on the dense
+block).
 
-Counterpart of the dense branches of ``repro/models/model.py``.
+Counterpart of those branches of ``repro/models/model.py``.
 Conventions, as the reference's:
 
   * weights by the JAX names: ``Transformer.p`` holds ``embed``,
-    ``final_norm`` (``final_norm_b``) and ``head``; each ``DenseBlock.p``
-    one layer's slice of ``params["blocks"]`` (``ln1``, ``wq``, ``wk``,
-    ``wv``, ``wo``, ``ln2``, ``w_gate``/``w_up`` or ``w_in``, ``w_down``,
-    with ``ln*_b`` for LayerNorm configs);
+    ``final_norm`` (``final_norm_b``), ``head`` and, for a vision_stub
+    config, ``patch_proj``; each ``DenseBlock.p`` one layer's slice of
+    ``params["blocks"]`` (``ln1``, ``wq``, ``wk``, ``wv``, ``wo``, ``ln2``,
+    ``w_gate``/``w_up`` or ``w_in``, ``w_down``, with ``ln*_b`` for
+    LayerNorm configs; a moe layer holds ``router`` and the experts'
+    ``we_gate``, ``we_up``, ``we_down`` instead of the MLP, and keeps the
+    MLP as Arctic's dense residual);
+  * a vision_stub batch may carry ``patch_embeds`` (B, F, D), projected by
+    ``patch_proj`` in place of the first F token embeddings, and an M-RoPE
+    config rotates by ``positions3`` (3, B, S), the batch's or the
+    positions broadcast;
   * matmul weights in ``cfg.param_dtype``, norms in f32;
   * the cache is {"k", "v": (L, B, S, KV, dh), "pos": (L, B, S) int32},
     unwritten slots at position 2^30, and a sliding-window config keeps a
@@ -22,8 +30,8 @@ Conventions, as the reference's:
     (of weights, gradients or optimizer moments) into the JAX package's
     layout, ``"blocks"`` a dict of (L, ...) leaves, and ``unstacked`` back.
 
-The moe, vlm, ssm, hybrid and audio families are not ported yet: building
-or running one raises ``NotImplementedError``.
+The ssm, hybrid and audio families are not ported yet: building or
+running one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,17 +43,15 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from . import layers
+from . import layers, moe
 from .config import ModelConfig
 from ..core.select import as_device_tensor, require_device
 from ..pytree import tree_map
 
 CE_CHUNK = 256
 
+_PORTED = ("dense", "vlm", "moe")
 _NOT_PORTED = {
-    "vlm": "ROADMAP.md Queue 1 item 6: the vlm family (apply_mrope, "
-           "patch_proj)",
-    "moe": "ROADMAP.md Queue 1 item 6: the moe family (moe.py)",
     "ssm": "ROADMAP.md Queue 1 item 6: the ssm and hybrid families (ssm.py)",
     "hybrid": "ROADMAP.md Queue 1 item 6: the ssm and hybrid families "
               "(ssm.py)",
@@ -54,12 +60,12 @@ _NOT_PORTED = {
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in _PORTED:
         where = _NOT_PORTED.get(cfg.family, "ROADMAP.md Queue 1 item 6")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet ({where}); only the dense family is")
+            f"PyTorch yet ({where}); the {', '.join(_PORTED)} families are")
 
 
 def _pdt(cfg: ModelConfig) -> torch.dtype:
@@ -75,6 +81,12 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
               "wo": ((NH * dh, D), True), "ln2": ((D,), False)}
     if cfg.use_layernorm:
         shapes.update(ln1_b=((D,), False), ln2_b=((D,), False))
+    if cfg.family == "moe":
+        E = cfg.moe_experts
+        shapes.update(router=((D, E), False), we_gate=((E, D, F), True),
+                      we_up=((E, D, F), True), we_down=((E, F, D), True))
+        if not cfg.moe_dense_residual:
+            return shapes
     if cfg.mlp_type == "swiglu":
         shapes.update(w_gate=((D, F), True), w_up=((D, F), True))
     else:
@@ -89,6 +101,8 @@ def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
               "head": ((D, V), True)}
     if cfg.use_layernorm:
         shapes["final_norm_b"] = ((D,), False)
+    if cfg.modality == "vision_stub":
+        shapes["patch_proj"] = ((D, D), True)
     return shapes
 
 
@@ -100,37 +114,54 @@ def _empty(shapes, cfg: ModelConfig, device) -> nn.ParameterDict:
         for name, (shape, mm) in shapes.items()})
 
 
+def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+             cfg: ModelConfig, *, positions: torch.Tensor,
+             positions3: Optional[torch.Tensor] = None,
+             cache: Optional[dict] = None,
+             kv_len: Optional[torch.Tensor] = None, angles=None,
+             bias=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``_dense_block_fn`` of the reference (no cross-attention): pre-norm
+    attention, then a pre-norm MLP, or the routed experts (plus the MLP for
+    Arctic's dense residual), each added to the residual stream.  Returns
+    (x, the moe layer's load-balance loss, else None).  ``cache`` is this
+    layer's and is written in place; ``positions3``, ``angles`` and
+    ``bias`` as ``layers.attn_block`` takes them."""
+    h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
+                             positions=positions, positions3=positions3,
+                             cache=cache, kv_len=kv_len, angles=angles,
+                             bias=bias)
+    x = x + h
+    xn = layers.norm(x, p, cfg, "ln2")
+    if cfg.family != "moe":
+        return x + layers.mlp_block(p, xn, cfg), None
+    y, aux = moe.moe_block(p, xn, cfg)
+    if cfg.moe_dense_residual:
+        y = y + layers.mlp_block(p, xn, cfg)
+    return x + y, aux
+
+
 class DenseBlock(nn.Module):
-    """One transformer layer: pre-norm attention, then a pre-norm MLP, each
-    added to the residual stream."""
+    """One transformer layer: ``block_fn`` over its weights, under its own
+    config or the one a caller passes (``prefill``, ``decode_step`` and
+    ``forward_loss`` pass theirs, as the reference's functions use the
+    config they are given)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
         self.p = _empty(_block_shapes(cfg), cfg, device)
 
-    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
-                cache: Optional[dict] = None,
-                kv_len: Optional[torch.Tensor] = None,
-                angles=None, bias=None) -> torch.Tensor:
-        """``_dense_block_fn`` of the reference (no MoE, no
-        cross-attention); ``cache`` is this layer's and is written in
-        place; ``angles`` and ``bias`` as ``layers.attn_block`` takes
-        them."""
-        cfg, p = self.cfg, self.p
-        h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
-                                 positions=positions, cache=cache,
-                                 kv_len=kv_len, angles=angles, bias=bias)
-        x = x + h
-        return x + layers.mlp_block(p, layers.norm(x, p, cfg, "ln2"), cfg)
+    def forward(self, x: torch.Tensor, cfg: Optional[ModelConfig] = None,
+                **kw) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return block_fn(self.p, x, cfg or self.cfg, **kw)
 
 
 class Transformer(nn.Module):
-    """A dense decoder: embedding, ``n_layers`` ``DenseBlock``s, final norm
-    and an untied output head."""
+    """A decoder: embedding (and a vision_stub's patch projection),
+    ``n_layers`` ``DenseBlock``s, final norm and an untied output head."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        _require_dense(cfg)
+        _require_ported(cfg)
         super().__init__()
         device = require_device(device)
         self.cfg = cfg
@@ -153,9 +184,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions and scales, from a
     ``torch.Generator`` on ``device`` seeded with ``seed``, one layer at a
-    time: matmul weights normal x 0.02 (``wo`` and ``w_down`` x 0.02 /
-    sqrt(2 layers)), norms 1, biases 0.  The values are not JAX's
-    (``params_from_numpy`` carries those over)."""
+    time: matmul weights and the router normal x 0.02 (``wo``, ``w_down``
+    and ``we_down`` x 0.02 / sqrt(2 layers)), norms 1, biases 0.  The
+    values are not JAX's (``params_from_numpy`` carries those over)."""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     so = 0.02 / (2 * max(1, cfg.n_layers + cfg.enc_layers)) ** 0.5
@@ -165,7 +196,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             if name.startswith(("ln", "final_norm")):
                 w.fill_(0.0 if name.endswith("_b") else 1.0)
                 continue
-            scale = so if name in ("wo", "w_down") else 0.02
+            scale = so if name in ("wo", "w_down", "we_down") else 0.02
             w.copy_(torch.randn(w.shape, generator=gen, device=w.device,
                                 dtype=torch.float32) * scale)
 
@@ -211,10 +242,11 @@ def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                       device="cuda") -> Transformer:
-    """The JAX parameter pytree of ``repro.models.model.init_params`` (dense
-    family), given as numpy arrays, as a ``Transformer`` on ``device``, bit
-    for bit.  bf16 leaves may be ml_dtypes arrays or their uint16 bits;
-    ``tree["blocks"]`` holds the stacked (L, ...) leaves."""
+    """The JAX parameter pytree of ``repro.models.model.init_params``
+    (dense, vlm or moe family), given as numpy arrays, as a ``Transformer``
+    on ``device``, bit for bit.  bf16 leaves may be ml_dtypes arrays or
+    their uint16 bits; ``tree["blocks"]`` holds the stacked (L, ...)
+    leaves."""
     return load_params(Transformer(cfg, device), tree)
 
 
@@ -276,10 +308,10 @@ def params_to_numpy(tree) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-# the matmuls without a batch dimension (the projections and the MLP),
-# whose outputs ``remat="dots"`` keeps, as JAX's
-# ``dots_with_no_batch_dims_saveable``; the attention's batched products
-# (``bmm``) are recomputed
+# the matmuls without a batch dimension (the projections, the MLP and the
+# router), whose outputs ``remat="dots"`` keeps, as JAX's
+# ``dots_with_no_batch_dims_saveable``; the attention's and the experts'
+# batched products (``bmm``) are recomputed
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -306,13 +338,18 @@ def _remat(block: DenseBlock, cfg: ModelConfig):
 
 
 def _run_decoder_train(params: Transformer, x: torch.Tensor,
-                       cfg: ModelConfig, positions: torch.Tensor):
+                       cfg: ModelConfig, positions: torch.Tensor,
+                       positions3: Optional[torch.Tensor] = None):
     """Every block in turn under the config's remat policy; returns the
-    residual stream and the auxiliary loss (0: the dense family has
-    none)."""
+    residual stream and the sum of the layers' load-balance losses (0
+    outside the moe family)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params.blocks:
-        x = _remat(block, cfg)(x, positions=positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_l = _remat(block, cfg)(x, cfg, positions=positions,
+                                      positions3=positions3)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return x, aux
 
 
 def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
@@ -345,14 +382,20 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
 def forward_loss(params: Transformer, batch: Mapping[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """Training forward: the mean cross-entropy of ``batch["labels"]``
-    (-1 ignored) after ``batch["tokens"]``, and {"ce", "aux", "tokens"}.
-    Differentiable in the model's parameters where they require grad."""
-    _require_dense(cfg)
-    x, positions = _embed_inputs(params, batch)
-    x, aux = _run_decoder_train(params, x, cfg, positions)
+    (-1 ignored) after ``batch["tokens"]`` (and a vision_stub's
+    ``patch_embeds``, a batch's ``positions3``), plus 0.01 x the mean
+    layer's load-balance loss for the moe family; and {"ce", "aux",
+    "tokens"}.  Differentiable in the model's parameters where they require
+    grad."""
+    _require_ported(cfg)
+    x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
+    x, aux = _run_decoder_train(params, x, cfg, positions, positions3)
     x = layers.norm(x, params.p, cfg, "final_norm")
     loss, n_tok = chunked_ce_loss(x, params.p["head"], batch["labels"])
-    return loss, {"ce": loss, "aux": aux, "tokens": n_tok}
+    total = loss
+    if cfg.family == "moe":
+        total = loss + 0.01 * aux / max(1, cfg.n_layers)
+    return total, {"ce": loss, "aux": aux, "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +409,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     positions (L, B, W) at the "unwritten" sentinel 2^30, where W is
     ``cache_len``, or ``min(cache_len, swa_window)`` for a sliding-window
     config (a ring)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = require_device(device)
     dt = dtype or _pdt(cfg)
     L, B, KV, dh = cfg.n_layers, batch_size, cfg.n_kv_heads, cfg.d_head
@@ -381,15 +424,27 @@ def _layer_cache(cache: Dict[str, torch.Tensor], i: int) -> dict:
     return {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
 
 
-def _embed_inputs(params: Transformer, batch: Mapping[str, torch.Tensor]):
-    """Token embeddings and positions 0..S-1 (text only; the gather's
-    backward adds each position's gradient into its token's row)."""
+def _embed_inputs(top: Mapping[str, torch.Tensor],
+                  batch: Mapping[str, torch.Tensor], cfg: ModelConfig):
+    """The input stream, positions 0..S-1 and the M-RoPE positions, from
+    the top weights ``top`` (``Transformer.p``): token embeddings (the
+    gather's backward adds each position's gradient into its token's row),
+    a vision_stub's ``batch["patch_embeds"]`` (B, F, D), cast to the
+    embeddings' dtype and projected by ``patch_proj``, in place of the
+    first F; ``batch["positions3"]`` (3, B, S), or for an M-RoPE config the
+    positions broadcast to 3 streams, else None."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params.p["embed"][tokens.long()]
+    x = top["embed"][tokens.long()]
+    if cfg.modality == "vision_stub" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype) @ top["patch_proj"]
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    return x, positions
+    positions3 = batch.get("positions3")
+    if cfg.mrope and positions3 is None:
+        positions3 = positions.expand(3, B, S)
+    return x, positions, positions3
 
 
 def _logits(params: Transformer, x: torch.Tensor, cfg: ModelConfig):
@@ -401,16 +456,19 @@ def _logits(params: Transformer, x: torch.Tensor, cfg: ModelConfig):
 def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig,
             cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Process a full prompt ``batch["tokens"]`` (B, S): the last
-    position's logits (B, V) f32 and the filled cache.  ``cache_len`` sizes
-    the cache (at least S; serving passes prompt + new tokens)."""
-    _require_dense(cfg)
+    """Process a full prompt ``batch["tokens"]`` (B, S) (with a vision_stub
+    config's ``patch_embeds`` and an M-RoPE config's ``positions3``, where
+    given): the last position's logits (B, V) f32 and the filled cache.
+    ``cache_len`` sizes the cache (at least S; serving passes prompt + new
+    tokens)."""
+    _require_ported(cfg)
     B, S = batch["tokens"].shape
     cache_len = max(cache_len, S)
-    x, positions = _embed_inputs(params, batch)
+    x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
     cache = init_cache(cfg, B, cache_len, device=params.device)
     for i, block in enumerate(params.blocks):
-        x = block(x, positions=positions, cache=_layer_cache(cache, i))
+        x, _ = block(x, cfg, positions=positions, positions3=positions3,
+                     cache=_layer_cache(cache, i))
     return _logits(params, x[:, -1:], cfg), cache
 
 
@@ -422,7 +480,7 @@ def decode_step(params: Transformer, token: torch.Tensor,
     length (the new token's position).  Writes the token's K/V at slot
     ``cache_len[0]`` (``cache_len % swa_window`` in a ring) in place and
     returns (logits (B, V) f32, the cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     B = token.shape[0]
     x = params.p["embed"][token.long()]
     positions = cache_len[:, None].to(torch.int32).expand(B, 1)
@@ -431,12 +489,18 @@ def decode_step(params: Transformer, token: torch.Tensor,
     if cfg.swa_window and W == cfg.swa_window:
         write_pos = cache_len % cfg.swa_window      # ring buffer slot
     # every layer writes the same position at the same slot: the rope
-    # angles and the mask over the written cache serve all of them
-    angles = layers.rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    # angles (M-RoPE's over the position broadcast to 3 streams, as the
+    # reference's) and the mask over the written cache serve all of them
+    if cfg.mrope:
+        angles = layers.mrope_angles(positions.expand(3, B, 1), cfg.d_head,
+                                     cfg.rope_theta, cfg.mrope_sections)
+    else:
+        angles = layers.rope_angles(positions, cfg.d_head, cfg.rope_theta)
     slot = write_pos[:1].long().clamp(0, W - 1)
     pos_k = cache["pos"][0].index_copy(1, slot, positions)
     bias = layers._mask_bias(positions, pos_k, None, True, cfg.swa_window)
     for i, block in enumerate(params.blocks):
-        x = block(x, positions=positions, cache=_layer_cache(cache, i),
-                  kv_len=write_pos, angles=angles, bias=bias)
+        x, _ = block(x, cfg, positions=positions,
+                     cache=_layer_cache(cache, i), kv_len=write_pos,
+                     angles=angles, bias=bias)
     return _logits(params, x, cfg), cache

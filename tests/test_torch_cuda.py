@@ -393,3 +393,37 @@ def test_generate_on_card_observes_every_step(cuda):
     k = int(np.ceil(0.999 * flat.numel()))
     assert _bits(cal.scale("logits").reshape(1)) == _bits(
         torch.sort(flat).values[k - 1].reshape(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b"])
+def test_moe_block_on_card_routes_as_the_cpu_and_repeats(arch, cuda):
+    """``moe_block`` of a reduced moe config in bf16 at capacity factor 1
+    (so experts drop assignments): on the card its experts and dropped
+    assignments are the CPU's, its output is within 2e-2 of the CPU's max
+    |y| and the same bits on every run (the combine adds no atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, moe
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              moe_capacity_factor=1.0)
+    p_cpu = model.init_params(cfg, 3, device="cpu").blocks[0].p
+    p_gpu = {k: v.to(cuda) for k, v in p_cpu.items()}
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+
+    def routing(p, x):
+        _, _, top_i = moe.route(p, x.reshape(T, -1), cfg)
+        d = moe.dispatch(top_i, moe.capacity(T, cfg), cfg.moe_experts)
+        return top_i.cpu(), d.keep.cpu(), d.order.cpu()
+
+    want_i, want_keep, want_order = routing(p_cpu, x)
+    got_i, got_keep, got_order = routing(p_gpu, x.to(cuda))
+    assert torch.equal(got_i, want_i) and torch.equal(got_order, want_order)
+    assert torch.equal(got_keep, want_keep) and not want_keep.all()
+    want, _ = moe.moe_block(p_cpu, x, cfg)
+    runs = [moe.moe_block(p_gpu, x.to(cuda), cfg)[0] for _ in range(3)]
+    assert all(_bits(r) == _bits(runs[0]) for r in runs)
+    err = (runs[0].cpu().float() - want.float()).abs().max()
+    assert float(err) <= 2e-2 * float(want.float().abs().max())

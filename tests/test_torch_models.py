@@ -273,9 +273,9 @@ def test_swa_prefill_longer_than_the_cache_keeps_the_reference_quirk():
     assert _rel(tl.numpy(), jl) <= TOL["float32", "prefill"]
     _assert_cache(jc, tc, TOL["float32", "prefill"])
     # the same blocks with no cache: every query sees its own window
-    x, positions = TM._embed_inputs(tp, {"tokens": _t(toks)})
+    x, positions, _ = TM._embed_inputs(tp.p, {"tokens": _t(toks)}, cfg)
     for block in tp.blocks:
-        x = block(x, positions=positions)
+        x, _ = block(x, positions=positions)
     full = TM._logits(tp, x[:, -1:], cfg)
     assert _rel(full.numpy(), jl) > 1e-3
 
@@ -371,8 +371,7 @@ def test_params_from_numpy_is_bit_exact_and_takes_uint16_bits():
         TM.params_from_numpy(tp.cfg, {"embed": tree["embed"]}, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-2b",
-                                  "mamba2-1.3b", "zamba2-2.7b",
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
                                   "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
