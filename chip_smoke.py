@@ -37,6 +37,16 @@
    ``radix_select_kth`` and ``radix_select_kth_bitwise`` at the median rank
    (bit-identical to the sort), ``count3`` and ``band_count`` (equal to
    direct torch counts).
+   Then the paper's baselines on the same array (``baselines_path``):
+   ``full_sort_quantile``, ``psrs_sort``, ``afs_select`` and
+   ``jeffers_select`` at q = 0.5 and 0.99, each equal bit for bit to 4's
+   sort oracle (and ``psrs_sort``'s whole output to the stable sort), each
+   one's median of 5 runs after a warm-up, peak memory and the
+   count-and-discard rounds, printed beside ``gk_select``'s median (one
+   card against one card, not the paper's cluster); then both selects on
+   (P, 2^16) arrays whose lowest and highest 2% are the dtype's extremes
+   (f32 +-inf, int32 iinfo.min/max) at q in {0, 0.01, 0.99, 1}, each equal
+   to a sort within 4 log2 n rounds.
 6. Drives the grouped path at the same size: per-tenant latencies
    (lognormal(1.0, 0.6) x (1 + 0.3 tenant), as ``examples/
    grouped_telemetry.py``) with int32 keys over 32 tenants whose traffic
@@ -122,12 +132,17 @@
    Last, 8 prompts of 4096 tokens take the blockwise attention: the first
    layer's, against the direct path, within 1e-5 of max |out| and within
    its memory bound (one q block at a time), then the whole prefill.
-10. Serves the moe and vlm families the same way (``moe_serve_path``,
-   ``vlm_serve_path``): olmoe-1b-7b (16 layers, d_model 2048, 16 heads of
-   128, 64 experts of d_ff 1024, top-8, vocab 50304; 6.92 B bf16 weights)
-   and qwen2-vl-2b (28 layers, d_model 1536, 12 heads over 2 KV heads of
-   128, d_ff 8960, vocab 151936, M-RoPE; 1.78 B), at their published width
-   and depth from ``--seed``: 8 prompts of 512 positions (qwen2-vl's first
+10. Serves the moe, vlm, ssm and hybrid families the same way
+   (``moe_serve_path``, ``vlm_serve_path``, ``ssm_serve_path``,
+   ``hybrid_serve_path``): olmoe-1b-7b (16 layers, d_model 2048, 16 heads
+   of 128, 64 experts of d_ff 1024, top-8, vocab 50304; 6.92 B bf16
+   weights), qwen2-vl-2b (28 layers, d_model 1536, 12 heads over 2 KV
+   heads of 128, d_ff 8960, vocab 151936, M-RoPE; 1.78 B), mamba2-1.3b (48
+   mamba layers, d_model 2048, 64 SSD heads of 64, state 128, vocab 50280)
+   and zamba2-2.7b (54 mamba layers, d_model 2560, 80 SSD heads, state 64,
+   one shared attention + SwiGLU block of 32 heads of 80 and d_ff 10240
+   after every 6, vocab 32000), at their published width and depth from
+   ``--seed``: 8 prompts of 512 positions (qwen2-vl's first
    256 are N(0, 1) patch embeddings on a 16 x 16 grid of ``positions3``,
    text j at (j, j, j)), 64 greedy tokens each, cache 576.  Decode after
    ``prefill(S)`` against ``prefill(S + 1)`` and each against an f32
@@ -139,13 +154,15 @@
    choices (decode vs prefill, bf16 vs f32), the drops and the expert
    loads are printed.  ``generate`` alone and with a fused
    ``StreamingCalibrator``, in turns, 5 rounds after a warm-up, the same
-   tokens each time; the warm ``scale`` over every logit (25.8M and 77.8M
+   tokens each time; the warm ``scale`` over every logit (8 x 64 x vocab
    values) equal to a sort bit for bit, ``fused_select`` launched (every
    count zeroed at the phase's start, read at its end).  For olmoe, the
    first layer's ``moe_block`` on the prefill's 4096 tokens against every
    expert evaluated on every token and picked by the same routing (within
    2e-2 of max |y|), and its router's f32 product against f64 (within
-   1e-5).  Prints times beside bounds, the decode step's busy share, peak
+   1e-5); for mamba2 and zamba2, the first mamba layer's chunked scan on
+   the prefill's input against the recurrence (within 1e-2 of max |y|).
+   Prints times beside bounds, the decode step's busy share, peak
    memory and the phase's seconds; ``fused_select`` at each phase's chunk
    joins 2's tally.
 11. Drives the training path (``repro_torch.launch.train.train_loop``) on
@@ -169,9 +186,10 @@
    atol = 2e-4 and the restored state equal to the saved one bit for bit.
    The six kernels' launch counts are zeroed before this phase and read
    after it (``train_launches``; the training path launches none).
-12. Times each kernel at its path's shapes beside its bound, its plain
-   version and the PyTorch calls that compute the same function, and prints
-   one ``kernels`` JSON line with all six, each with its launches per
+12. Times each kernel at its path's shapes beside its bound (and the share
+   of the peak memory rate it reaches), its plain version and the PyTorch
+   calls that compute the same function, and prints one ``kernels`` JSON
+   line with all six, each with its launches per
    service query (the serve phases' ``scale`` queries among them) and on
    the training path.
 
@@ -194,7 +212,6 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 P, N_I, EPS = 120, 1 << 23, 1e-4
 QS = (0.01, 0.25, 0.5, 0.75, 0.99)
 GROUPS, GROUP_QS = 32, (0.5, 0.99)
@@ -205,11 +222,11 @@ SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
-                ("vlm_serve_path", "qwen2-vl-2b"))
+                ("vlm_serve_path", "qwen2-vl-2b"),
+                ("ssm_serve_path", "mamba2-1.3b"),
+                ("hybrid_serve_path", "zamba2-2.7b"))
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (data sheet)
-F32_FLOPS_PER_S = 67e12            # H100 SXM float32, no tensor cores
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
 U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -834,8 +851,10 @@ def _library_bands(x, pivots, cap):
 def _kernel_row(name, launches, kernel, plain, library, library_call,
                 moved_bytes, plain_iters=2) -> dict:
     """One kernel at its path's shapes: parity with its plain version on
-    these inputs, its time, the plain version's, the library calls', and
-    the bound (each input byte read once, each output byte written once)."""
+    these inputs, its time, the plain version's, the library calls', the
+    bound (each input byte read once, each output byte written once) and
+    the share of the peak memory rate that its time reaches."""
+    from repro_torch.launch import roofline
     got, want = kernel(), plain()
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
@@ -849,10 +868,13 @@ def _kernel_row(name, launches, kernel, plain, library, library_call,
            "replaces": REPLACES[name], "launches": launches,
            "max_abs_err": err, "ms": _event_ms(kernel, 5),
            "plain_ms": _event_ms(plain, plain_iters),
-           "bound_ms": moved_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bound_ms": moved_bytes / roofline.HBM_BW * 1e3,
+           "bound_by": "bytes",
            "library_ms": None if library is None
            else _event_ms(library, plain_iters),
            "library_call": library_call}
+    row["frac_of_peak_bw"] = roofline.kernel_roofline(
+        moved_bytes, row["ms"] / 1e3, "cuda")["frac_of_peak"]
     torch.cuda.empty_cache()
     return row
 
@@ -945,6 +967,116 @@ def counting_path(x, pivots, want, k) -> dict:
             "answer": float(got["radix_select_kth"]),
             "count3": got["count3"].tolist(),
             "band_count": int(got["band_count"])}, kernels
+
+
+# ---------------------------------------------------------------------------
+# 5b. the paper's baselines on the main path's array
+# ---------------------------------------------------------------------------
+
+
+def _extreme_data(dtype, seed: int) -> torch.Tensor:
+    """(P, 2^16) values whose lowest and highest 2% are the dtype's
+    extremes (-inf/+inf for float32, iinfo.min/max for int32), the rest
+    normal (float32) or in [-100, 100) (int32), shuffled."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n = P << 16
+    if dtype == torch.float32:
+        x = torch.randn(n, generator=gen, device="cuda")
+        lo, hi = float("-inf"), float("inf")
+    else:
+        x = torch.randint(-100, 100, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        info = torch.iinfo(torch.int32)
+        lo, hi = info.min, info.max
+    m = n // 50
+    x[:m], x[m:2 * m] = lo, hi
+    return x[torch.randperm(n, generator=gen, device="cuda")].reshape(P, -1)
+
+
+def baselines_path(x, want_multi, gk_median_s: float) -> dict:
+    """The paper's comparison suite (§IV) on the main path's array:
+    ``full_sort_quantile``, ``psrs_sort``, ``afs_select`` and
+    ``jeffers_select`` at q = 0.5 and 0.99, each equal bit for bit to the
+    main path's sort oracle, and ``psrs_sort``'s output equal to the stable
+    sort element for element; each one's median of TIMED_RUNS after a
+    warm-up, its peak memory, the count-and-discard rounds, and the full
+    sort beside ``gk_select``.  Then the count-and-discard selects at the
+    dtype extremes, each equal to a sort.  The baselines launch none of
+    the six kernels (the reference's count is a plain ``jnp`` pass)."""
+    import repro_torch.kernels as K
+    from repro_torch.core import baselines as bl, local_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    K.reset_launches()
+    qs = (0.5, 0.99)
+    wants = {q: want_multi[QS.index(q)] for q in qs}
+    n = x.numel()
+    out = {"n": n, "shards": P, "answers": {}, "median_s": {},
+           "runs_s": {}, "peak_above_data_bytes": {}, "rounds": {}}
+
+    def timed(name, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, got = [], None
+        for _ in range(TIMED_RUNS + 1):
+            got = None                       # free the last result first
+            got, t = _sync_time(fn)
+            times.append(t)
+        out["runs_s"][name] = times[1:]
+        out["median_s"][name] = statistics.median(times[1:])
+        out["peak_above_data_bytes"][name] = (
+            torch.cuda.max_memory_allocated() - base)
+        return got
+
+    selects = (("full_sort_quantile", bl.full_sort_quantile, None),
+               ("afs_select", bl.afs_select, 0),
+               ("jeffers_select", bl.jeffers_select, 1))
+    for name, fn, seed in selects:
+        for q in qs:
+            got = timed(f"{name}_q{q}", lambda: fn(x, q))
+            _check_bits(f"{name} q={q}", got, wants[q])
+            out["answers"][f"{name}_q{q}"] = float(got)
+            if seed is not None:
+                out["rounds"][f"{name}_q{q}"] = bl.count_discard_rounds(
+                    x, q, seed=seed)
+    srt = timed("psrs_sort", lambda: bl.psrs_sort(x))
+    for q in qs:
+        _check_bits(f"psrs_sort q={q}",
+                    srt[local_ops.target_rank(n, q) - 1], wants[q])
+    oracle = local_ops.stable_sort(x.reshape(-1))
+    if not torch.equal(_bits(srt), _bits(oracle)):
+        raise AssertionError("psrs_sort differs from the stable sort")
+    del srt, oracle
+    torch.cuda.empty_cache()
+    launched = {k: c for k, c in K.launches().items() if c}
+
+    # the count-and-discard selects where rank k sits on a dtype extreme
+    extremes = {}
+    for dtype in (torch.float32, torch.int32):
+        e = _extreme_data(dtype, 0)
+        flat_sorted = torch.sort(e.reshape(-1)).values
+        for q in (0.0, 0.01, 0.99, 1.0):
+            want = flat_sorted[local_ops.target_rank(e.numel(), q) - 1]
+            for name, fn, seed in selects[1:]:
+                _check_bits(f"{name} {dtype} q={q}", fn(e, q), want)
+                r = bl.count_discard_rounds(e, q, seed=seed)
+                if r > 4 * math.log2(e.numel()):
+                    raise AssertionError(f"{name} {dtype} q={q}: {r} rounds")
+                extremes[f"{name}_{str(dtype)[6:]}_q{q}"] = {
+                    "answer": float(want), "rounds": r}
+        del e, flat_sorted
+    torch.cuda.empty_cache()
+    full = out["median_s"]["full_sort_quantile_q0.5"]
+    out.update({
+        "gk_select_median_s": gk_median_s,
+        "full_sort_over_gk_select": full / gk_median_s,
+        "ratio_note": "one H100 against one H100 (both on the card), not "
+                      "the paper's 30-core cluster",
+        "launches": launched, "extremes": extremes,
+        "wall_s": time.perf_counter() - t_phase})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1212,7 +1344,7 @@ def service_path(x, want, want_multi, gk_median_s: float, tally) -> tuple:
     from repro_torch.core import sketch as sk
     from repro_torch.kernels import (fused_select as fs, ref,
                                      segmented_select as ss)
-    from repro_torch.launch import QuantileService
+    from repro_torch.launch import QuantileService, roofline
     from repro_torch.launch import quantile_service as qsvc
 
     t_phase = time.perf_counter()
@@ -1271,7 +1403,7 @@ def service_path(x, want, want_multi, gk_median_s: float, tally) -> tuple:
               f"service chunk 1 x {chunk.shape[1]} cap={cap}")
     chunk_ms = _event_ms(lambda: fs.fused_select(chunk, pivot, cap), 5)
     chunk_bound_ms = (chunk.numel() * 4 + 3 * 4 + 2 * cap * 4) \
-        / HBM_BYTES_PER_S * 1e3
+        / roofline.HBM_BW * 1e3
     keys = torch.zeros_like(chunk, dtype=torch.int32)
     piv = sk.sketch_query_rank_batch(
         qsvc._gather_rows(svc._stacked, svc._slot_index([slot])),
@@ -1341,7 +1473,7 @@ def tenants_path(seed: int, tally) -> tuple:
     from repro_torch.core import local_ops, sketch as sk
     from repro_torch.kernels import (fused_select as fs, ref,
                                      segmented_select as ss)
-    from repro_torch.launch import QuantileService, Window
+    from repro_torch.launch import QuantileService, Window, roofline
     from repro_torch.launch import quantile_service as qsvc
 
     t_phase = time.perf_counter()
@@ -1460,7 +1592,7 @@ def tenants_path(seed: int, tally) -> tuple:
     record_ms = _event_ms(lambda: ss.segmented_select(
         v_rec, k_rec, grid[:per_launch], cap), 3)
     record_bound_ms = (v_rec.numel() * 8 + grid[:per_launch].numel() * (
-        3 * 4 + 2 * cap * 4)) / HBM_BYTES_PER_S * 1e3
+        3 * 4 + 2 * cap * 4)) / roofline.HBM_BW * 1e3
     del v_rec, k_rec
     for g0 in range(0, TENANTS, per_launch):
         kk = k - g0
@@ -1898,23 +2030,38 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     last one; a moe layer's experts over their padded (E, cap) buffers, as
     the reference computes them; a vision_stub's patch projection) at the
     bf16 rate, and the f32 attention scores and sums over the cache (the
-    direct path) and a moe layer's f32 router at the f32 rate."""
+    direct path), a moe layer's f32 router and a mamba layer's chunk scan
+    (its four f32 products, over the chunks the prompt pads to) at the f32
+    rate.  A hybrid's shared block counts once per group."""
+    from repro_torch.launch import roofline
     from repro_torch.models import moe
 
     D, F, L, T = cfg.d_model, cfg.d_ff, cfg.n_layers, B * S
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    matmul, f32 = 2 * D * cfg.vocab * B, 0
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, N, H, hd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                          cfg.ssm_head_dim)
+        cl = min(cfg.ssm_chunk, S)
+        chunks = -(-S // cl)
+        matmul += 2 * L * T * (D * (2 * d_in + 2 * N + H) + d_in * D)
+        f32 += 2 * L * B * chunks * (cl * cl * N + cl * cl * H * hd
+                                     + 2 * cl * H * hd * N)
+        if cfg.family == "ssm":
+            return matmul / roofline.PEAK_FLOPS + f32 / roofline.PEAK_FLOPS_F32
+        L = cfg.n_layers // cfg.hybrid_attn_every
     layer = D * (NH + 2 * KV) * dh + NH * dh * D
     if cfg.family != "moe" or cfg.moe_dense_residual:
         layer += (3 if cfg.mlp_type == "swiglu" else 2) * D * F
-    matmul = 2 * L * layer * T + 2 * D * cfg.vocab * B
-    f32 = 4 * L * B * NH * S * cache_len * dh
+    matmul += 2 * L * layer * T
+    f32 += 4 * L * B * NH * S * cache_len * dh
     if cfg.family == "moe":
         E = cfg.moe_experts
         matmul += 2 * L * E * moe.capacity(T, cfg) * 3 * D * F
         f32 += 2 * L * T * D * E
     if cfg.modality == "vision_stub":
         matmul += 2 * B * cfg.frontend_len * D * D
-    return matmul / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S
+    return matmul / roofline.PEAK_FLOPS + f32 / roofline.PEAK_FLOPS_F32
 
 
 def _long_prompt(params, cfg, seed: int) -> dict:
@@ -1992,17 +2139,57 @@ def _f32_logits(params, batch, cfg) -> torch.Tensor:
     """prefill's last logits for ``batch`` with the same weights in f32 (the
     reference's model at ``param_dtype="float32"``): each layer's weights
     are cast as it runs (no f32 copy of the model), and every activation is
-    f32, the patch embeddings and the moe routing included."""
-    from repro_torch.models import layers, model
+    f32, the patch embeddings and the moe routing included; a mamba layer
+    runs its chunked scan (whose intra-chunk product rounds its operands
+    to bf16 at any param dtype, as the reference's does)."""
+    from repro_torch.models import layers, model, ssm
 
     f32 = dataclasses.replace(cfg, param_dtype="float32")
     top = {name: w.float() for name, w in params.p.items()}
     x, pos, pos3 = model._embed_inputs(top, batch, f32)
-    for block in params.blocks:
+
+    def run(block, x):
         p = {name: w.float() for name, w in block.p.items()}
-        x, _ = model.block_fn(p, x, f32, positions=pos, positions3=pos3)
+        if isinstance(block, model.MambaBlock):
+            return x + ssm.ssd_forward(p, layers.rmsnorm(x, p["norm"]), f32)
+        return model.block_fn(p, x, f32, positions=pos, positions3=pos3)[0]
+
+    if cfg.family == "hybrid":
+        for group in params.mamba:
+            for block in group:
+                x = run(block, x)
+            x = run(params.shared, x)
+    else:
+        for block in params.blocks:
+            x = run(block, x)
     return (layers.norm(x[:, -1], top, f32, "final_norm")
             @ top["head"]).float()
+
+
+@torch.no_grad()
+def _scan_check(params, batch, cfg) -> dict:
+    """The first mamba layer's chunked ``ssd_forward`` on the prefill's
+    input at full width against the sequential ``ssd_reference`` (one
+    recurrent step a position): within 1e-2 of max |y|, the JAX test's
+    bound (``tests/test_models.py``; the intra-chunk product rounds its
+    operands to bf16)."""
+    from repro_torch.models import layers, model, ssm
+
+    block = (params.mamba[0][0] if cfg.family == "hybrid"
+             else params.blocks[0])
+    x, _, _ = model._embed_inputs(params.p, batch, cfg)
+    xn = layers.rmsnorm(x, block.p["norm"])
+    (chunked, chunked_s) = _sync_time(lambda: ssm.ssd_forward(block.p, xn,
+                                                              cfg))
+    sequential, sequential_s = _sync_time(
+        lambda: ssm.ssd_reference(block.p, xn, cfg))
+    err = _rel_err(chunked.float(), sequential.float())
+    if not err <= 1e-2:
+        raise AssertionError(f"{cfg.name}: the chunked scan is {err} of max "
+                             f"|y| off the recurrence")
+    return {"positions": x.shape[1], "chunk": cfg.ssm_chunk, "rel_err": err,
+            "tolerance": 1e-2, "chunked_s": chunked_s,
+            "sequential_s": sequential_s}
 
 
 def serve_path(seed: int, tally) -> tuple:
@@ -2015,7 +2202,7 @@ def serve_path(seed: int, tally) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core import local_ops, sketch as sk
     from repro_torch.kernels import fused_select as fs, ref
-    from repro_torch.launch import StreamingCalibrator, serve
+    from repro_torch.launch import StreamingCalibrator, roofline, serve
     from repro_torch.models import model
 
     t_phase = time.perf_counter()
@@ -2185,7 +2372,7 @@ def serve_path(seed: int, tally) -> tuple:
         "generate_median_s": gen_s, "generate_runs_s": runs,
         "decode_s_per_step": decode_s,
         "decode_bound_s_per_step": (weight_bytes + cache_bytes)
-        / HBM_BYTES_PER_S,
+        / roofline.HBM_BW,
         "tokens_per_s": B * G / gen_s,
         "generate_calibrated_sync_median_s": gen_sync_s,
         "generate_calibrated_threaded_median_s": gen_threaded_s,
@@ -2391,18 +2578,21 @@ def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
 
 
 def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
-    """``arch`` (the moe or the vlm family) at its published width and
-    depth, weights from ``--seed``: SERVE_B prompts of SERVE_PROMPT
+    """``arch`` (the moe, vlm, ssm or hybrid family) at its published width
+    and depth, weights from ``--seed``: SERVE_B prompts of SERVE_PROMPT
     positions (a vision_stub's first ``frontend_len`` are patch
     embeddings), SERVE_GEN greedy tokens each, the logits calibrated by a
     fused ``StreamingCalibrator`` whose warm ``scale`` must equal a sort on
-    the card bit for bit.  Every launch count is zeroed at the start and
-    read at the end; ``fused_select`` must have launched."""
+    the card bit for bit.  A mamba model also holds its first layer's
+    chunked scan against the recurrence (``_scan_check``).  Every launch
+    count is zeroed at the start and read at the end; ``fused_select``
+    must have launched."""
     import repro_torch.kernels as K
+    from repro_torch import pytree
     from repro_torch.configs import get_config
     from repro_torch.core import local_ops, sketch as sk
     from repro_torch.kernels import fused_select as fs, ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import roofline, serve
     from repro_torch.models import model
 
     t_phase = time.perf_counter()
@@ -2444,10 +2634,17 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         consistency["dropless"], routing["dropless"], _ = _consistency(
             params, dropless, batch, tokens, at_s, S + G, gate=True)
     moe_formula = _moe_formula(params, batch(S), cfg) if is_moe else None
+    scan = (_scan_check(params, batch(S), cfg)
+            if cfg.family in ("ssm", "hybrid") else None)
     n_params = sum(w.numel() for w in params.parameters())
     weight_bytes = sum(w.numel() * w.element_size()
                        for w in params.parameters())
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.leaves(cache))
+    # a decode step rewrites the whole recurrent state (ssm and conv)
+    state = (cache if cfg.family == "ssm" else cache.get("mamba", {}))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.leaves(state))
     _, prefill_s = _median_s(lambda: model.prefill(
         params, batch(S), cfg, cache_len=S + G))
     profile = _profile(lambda: model.decode_step(params, tokens[:, S:],
@@ -2519,14 +2716,15 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         "weight_bytes": weight_bytes, "batch": B, "prompt_len": S,
         "patch_positions": cfg.frontend_len if extras else 0,
         "gen_len": G, "cache_len": S + G, "kv_cache_bytes": cache_bytes,
+        "recurrent_state_bytes": state_bytes,
         "init_s": init_s, "consistency_rel_err": consistency,
-        "routing": routing, "moe_formula": moe_formula,
+        "routing": routing, "moe_formula": moe_formula, "scan_check": scan,
         "prefill_median_s": prefill_s,
         "prefill_bound_s": _prefill_bound_s(cfg, B, S, S + G),
         "generate_median_s": gen_s, "generate_runs_s": runs,
         "decode_s_per_step": decode_s,
-        "decode_bound_s_per_step": (weight_bytes + cache_bytes)
-        / HBM_BYTES_PER_S,
+        "decode_bound_s_per_step": (weight_bytes + cache_bytes
+                                    + state_bytes) / roofline.HBM_BW,
         "decode_busy_share": profile.get("device_busy_share"),
         "tokens_per_s": B * G / gen_s,
         "generate_calibrated_sync_median_s": gen_sync_s,
@@ -2736,6 +2934,7 @@ def train_path(seed: int) -> dict:
     TRAIN_RESUME_LAYERS layers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import roofline
     from repro_torch.launch.train import train_loop
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.optim import AdamWConfig
@@ -2803,8 +3002,8 @@ def train_path(seed: int) -> dict:
         "losses": out["losses"], "step_s_each": out["step_s"],
         "step_s": step_s, "tokens_per_s": tokens / step_s,
         "model_flops_share": 6 * n_params * tokens / step_s
-        / BF16_FLOPS_PER_S,
-        "model_flops_bound_s": 6 * n_params * tokens / BF16_FLOPS_PER_S,
+        / roofline.PEAK_FLOPS,
+        "model_flops_bound_s": 6 * n_params * tokens / roofline.PEAK_FLOPS,
         "clip_s": clip_s, "clip_share_of_step": clip_s / step_s,
         "clip_s_each": taps.clip_s, "peak_memory_bytes": peak,
         "exactness": checks, "compress_step": compress,
@@ -2880,6 +3079,8 @@ def main() -> int:
     result, rows = counting_path(x, pivots, want, k)
     kernels += rows
     print(json.dumps({"counting_path": result}), flush=True)
+    result = baselines_path(x, want_multi, gk_median_s)
+    print(json.dumps({"baselines_path": result}), flush=True)
     del x, pivots                # the grouped path's peak counts its own data
     torch.cuda.empty_cache()
     result, rows, (values, keys, want_grouped) = grouped_path(args.seed)

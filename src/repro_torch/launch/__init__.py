@@ -1,8 +1,10 @@
 """Launch layer of the port: the streaming quantile service
 (``quantile_service.QuantileService``, its slot table, tick ring, warm
 exact queries, windows and snapshots), the ``StreamingCalibrator`` kept on
-it, its threaded ingest (``ingest_pool.IngestPool``) and the serving
-entry point (``serve``: ``generate`` and the int8 calibrations)."""
+it, its threaded ingest (``ingest_pool.IngestPool``), the serving
+entry point (``serve``: ``generate`` and the int8 calibrations), the
+training loop (``train``, its step in ``steps``) and the roofline terms
+under the H100's rates (``roofline``)."""
 from .quantile_service import (QuantileService, RWLock, StreamingCalibrator,
                                Window, ingest_dispatches,
                                record_ingest_dispatch,

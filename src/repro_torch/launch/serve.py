@@ -2,8 +2,8 @@
 and exact-quantile int8 activation calibration (the paper's primitive
 applied to quantized serving).
 
-Counterpart of ``repro/launch/serve.py``, for the dense, vlm and moe
-families.
+Counterpart of ``repro/launch/serve.py``, for the dense, vlm, moe, ssm
+and hybrid families.
 Calibration comes in two shapes:
 
   * one-shot: ``calibrate_int8_scale`` / ``calibrate_int8_scales`` run a
@@ -21,6 +21,8 @@ Usage:
       [--ingest-threads 4]
   python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced \\
       --device cpu --calibrate          # qwen2-vl-2b: zero patch embeds
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced \\
+      --device cpu --calibrate          # or zamba2-2.7b
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Training loop of the port: data pipeline -> train step -> checkpoint
 and restore, preemption handling, straggler monitoring, exact resume.
 
-Counterpart of ``repro/launch/train.py``.  A checkpoint holds ``(params,
+Counterpart of ``repro/launch/train.py``, for every family the port's
+models build (dense, vlm, moe, ssm, hybrid).  A checkpoint holds ``(params,
 AdamWState)`` in the JAX package's layout and leaf order, so a run of
 either package resumes from the other's checkpoint.
 

@@ -159,7 +159,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = NH // KV
 
     if Sq == 1:
-        scale = torch.tensor(dh ** -0.5, dtype=torch.bfloat16, device=q.device)
+        # a fill on the device: a host tensor copied over would sync
+        scale = torch.full((), dh ** -0.5, dtype=torch.bfloat16,
+                           device=q.device)
         qg = (q.to(torch.bfloat16) * scale).reshape(B, Sq, KV, G, dh)
         s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(),
                          k.to(torch.bfloat16).float())

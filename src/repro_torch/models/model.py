@@ -1,7 +1,6 @@
 """Model assembly, in PyTorch: parameter init, the weights of a JAX
-checkpoint and back, the training loss, prefill and decode with a KV cache,
-for the dense, vlm and moe families (every family built on the dense
-block).
+checkpoint and back, the training loss, prefill and decode with a cache,
+for the dense, vlm, moe, ssm and hybrid families.
 
 Counterpart of those branches of ``repro/models/model.py``.
 Conventions, as the reference's:
@@ -14,24 +13,37 @@ Conventions, as the reference's:
     LayerNorm configs; a moe layer holds ``router`` and the experts'
     ``we_gate``, ``we_up``, ``we_down`` instead of the MLP, and keeps the
     MLP as Arctic's dense residual);
+  * an ssm model (mamba2) is ``n_layers`` ``MambaBlock``s, each ``p`` one
+    layer of the reference's ``params["blocks"]`` (``norm``, ``in_proj``,
+    ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``out_norm``,
+    ``out_proj``); a hybrid model (zamba2) is ``n_layers / every`` groups
+    (``Transformer.mamba``) of ``every = hybrid_attn_every``
+    ``MambaBlock``s, each group followed by one ``DenseBlock`` whose
+    weights all groups share (``Transformer.shared``, the reference's
+    ``params["shared"]``);
   * a vision_stub batch may carry ``patch_embeds`` (B, F, D), projected by
     ``patch_proj`` in place of the first F token embeddings, and an M-RoPE
     config rotates by ``positions3`` (3, B, S), the batch's or the
     positions broadcast;
   * matmul weights in ``cfg.param_dtype``, norms in f32;
-  * the cache is {"k", "v": (L, B, S, KV, dh), "pos": (L, B, S) int32},
-    unwritten slots at position 2^30, and a sliding-window config keeps a
-    ring of ``min(cache_len, swa_window)`` slots.  Prefill and decode write
-    it in place and return it;
+  * the attention cache is {"k", "v": (L, B, S, KV, dh), "pos": (L, B, S)
+    int32}, unwritten slots at position 2^30, and a sliding-window config
+    keeps a ring of ``min(cache_len, swa_window)`` slots; an ssm cache is
+    {"ssm": (L, B, H, hd, N) f32, "conv": (L, B, K - 1, d_inner + 2N)}; a
+    hybrid's is {"mamba": that cache at (G, every, ...), "shared": the
+    attention cache of G layers}.  Prefill returns it, and decode writes
+    it in place and returns it;
   * the losses ignore label -1, and the cross-entropy runs in sequence
     chunks of ``CE_CHUNK``;
   * a parameter tree (``param_tree``) is a dict of the top weights with
-    ``"blocks"`` a list of one dict a layer; ``stacked`` turns such a tree
-    (of weights, gradients or optimizer moments) into the JAX package's
-    layout, ``"blocks"`` a dict of (L, ...) leaves, and ``unstacked`` back.
+    ``"blocks"`` a list of one dict a layer (a hybrid's ``"mamba"`` a list
+    of G lists of ``every`` dicts, and ``"shared"`` one dict); ``stacked``
+    turns such a tree (of weights, gradients or optimizer moments) into the
+    JAX package's layout, ``"blocks"`` a dict of (L, ...) leaves
+    (``"mamba"`` of (G, every, ...) leaves), and ``unstacked`` back.
 
-The ssm, hybrid and audio families are not ported yet: building or
-running one raises ``NotImplementedError``.
+The audio family is not ported yet: building or running it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,18 +55,15 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from . import layers, moe
+from . import layers, moe, ssm
 from .config import ModelConfig
 from ..core.select import as_device_tensor, require_device
-from ..pytree import tree_map
+from ..pytree import leaves, paths, tree_map
 
 CE_CHUNK = 256
 
-_PORTED = ("dense", "vlm", "moe")
+_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "ssm": "ROADMAP.md Queue 1 item 6: the ssm and hybrid families (ssm.py)",
-    "hybrid": "ROADMAP.md Queue 1 item 6: the ssm and hybrid families "
-              "(ssm.py)",
     "audio": "ROADMAP.md Queue 1 item 6: the audio family (encoder-decoder "
              "with cross-attention)",
 }
@@ -93,6 +102,18 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
         shapes["w_in"] = ((D, F), True)
     shapes["w_down"] = ((F, D), True)
     return shapes
+
+
+def _mamba_shapes(cfg: ModelConfig
+                  ) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """One mamba layer's weights: name -> (shape, in param dtype)."""
+    D, d_in, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    C = d_in + 2 * N
+    return {"norm": ((D,), False), "in_proj": ((D, 2 * d_in + 2 * N + H), True),
+            "conv_w": ((cfg.ssm_conv, C), False), "conv_b": ((C,), False),
+            "A_log": ((H,), False), "D": ((H,), False),
+            "dt_bias": ((H,), False), "out_norm": ((d_in,), False),
+            "out_proj": ((d_in, D), True)}
 
 
 def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
@@ -156,9 +177,32 @@ class DenseBlock(nn.Module):
         return block_fn(self.p, x, cfg or self.cfg, **kw)
 
 
+class MambaBlock(nn.Module):
+    """One mamba layer (the reference's ``_mamba_block_fn``): rmsnorm, then
+    the chunked ``ssd_forward``, or with a cache one ``ssd_decode`` step
+    (which writes the cache in place), added to the residual stream."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.p = _empty(_mamba_shapes(cfg), cfg, device)
+
+    def forward(self, x: torch.Tensor, cfg: Optional[ModelConfig] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        cfg = cfg or self.cfg
+        xn = layers.rmsnorm(x, self.p["norm"])
+        if cache is None:
+            return x + ssm.ssd_forward(self.p, xn, cfg)
+        return x + ssm.ssd_decode(self.p, xn, cfg, cache)[0]
+
+
 class Transformer(nn.Module):
-    """A decoder: embedding (and a vision_stub's patch projection),
-    ``n_layers`` ``DenseBlock``s, final norm and an untied output head."""
+    """A decoder: embedding (and a vision_stub's patch projection), the
+    layers, final norm and an untied output head.  The layers are
+    ``blocks``: ``n_layers`` ``DenseBlock``s, or ``MambaBlock``s for the
+    ssm family; a hybrid has ``mamba``, G groups of ``hybrid_attn_every``
+    ``MambaBlock``s, and the one ``shared`` ``DenseBlock`` that runs after
+    each group."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         _require_ported(cfg)
@@ -166,8 +210,16 @@ class Transformer(nn.Module):
         device = require_device(device)
         self.cfg = cfg
         self.p = _empty(_top_shapes(cfg), cfg, device)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            every = cfg.hybrid_attn_every
+            self.mamba = nn.ModuleList(
+                nn.ModuleList(MambaBlock(cfg, device) for _ in range(every))
+                for _ in range(cfg.n_layers // every))
+            self.shared = DenseBlock(cfg, device)
+        else:
+            block = MambaBlock if cfg.family == "ssm" else DenseBlock
+            self.blocks = nn.ModuleList(block(cfg, device)
+                                        for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -185,11 +237,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     """Random weights with the reference's distributions and scales, from a
     ``torch.Generator`` on ``device`` seeded with ``seed``, one layer at a
     time: matmul weights and the router normal x 0.02 (``wo``, ``w_down``
-    and ``we_down`` x 0.02 / sqrt(2 layers)), norms 1, biases 0.  The
-    values are not JAX's (``params_from_numpy`` carries those over)."""
+    and ``we_down`` x 0.02 / sqrt(2 layers)), norms 1, biases 0; a mamba
+    layer's ``in_proj`` normal x 0.02, ``out_proj`` x 0.02 / sqrt(2
+    n_layers), ``conv_w`` x 0.1 (rounded to the param dtype, kept in f32),
+    ``conv_b`` and ``A_log`` 0, ``D`` 1, ``dt_bias`` -2.  The values are
+    not JAX's (``params_from_numpy`` carries those over)."""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(int(seed))
     so = 0.02 / (2 * max(1, cfg.n_layers + cfg.enc_layers)) ** 0.5
+    mamba_scale = {"in_proj": 0.02, "conv_w": 0.1,
+                   "out_proj": 0.02 / (2 * max(1, cfg.n_layers)) ** 0.5}
+    mamba_const = {"norm": 1.0, "out_norm": 1.0, "D": 1.0, "conv_b": 0.0,
+                   "A_log": 0.0, "dt_bias": -2.0}
+
+    def normal(w: torch.Tensor, scale: float) -> torch.Tensor:
+        return torch.randn(w.shape, generator=gen, device=w.device,
+                           dtype=torch.float32) * scale
 
     def fill(pdict: nn.ParameterDict) -> None:
         for name, w in pdict.items():
@@ -197,23 +260,42 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 w.fill_(0.0 if name.endswith("_b") else 1.0)
                 continue
             scale = so if name in ("wo", "w_down", "we_down") else 0.02
-            w.copy_(torch.randn(w.shape, generator=gen, device=w.device,
-                                dtype=torch.float32) * scale)
+            w.copy_(normal(w, scale))
+
+    def fill_mamba(pdict: nn.ParameterDict) -> None:
+        for name, w in pdict.items():
+            if name in mamba_const:
+                w.fill_(mamba_const[name])
+            else:
+                w.copy_(normal(w, mamba_scale[name]).to(_pdt(cfg)))
 
     fill(model.p)
-    for block in model.blocks:
+    for block in _dense_blocks(model):
         fill(block.p)
+    for block in _mamba_blocks(model):
+        fill_mamba(block.p)
     return model
+
+
+def _dense_blocks(params: Transformer):
+    if params.cfg.family == "hybrid":
+        return [params.shared]
+    return [] if params.cfg.family == "ssm" else list(params.blocks)
+
+
+def _mamba_blocks(params: Transformer):
+    if params.cfg.family == "hybrid":
+        return [block for group in params.mamba for block in group]
+    return list(params.blocks) if params.cfg.family == "ssm" else []
 
 
 @torch.no_grad()
 def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
     """Copy a parameter tree in the JAX package's layout (``tree["blocks"]``
-    holds the stacked (L, ...) leaves) into ``params``, bit for bit.  Leaves
-    are tensors or numpy arrays; bf16 numpy leaves may be ml_dtypes arrays
-    or their uint16 bits."""
-    cfg = params.cfg
-
+    holds the stacked (L, ...) leaves; a hybrid's ``tree["mamba"]`` the
+    (G, every, ...) leaves and ``tree["shared"]`` one block's) into
+    ``params``, bit for bit.  Leaves are tensors or numpy arrays; bf16
+    numpy leaves may be ml_dtypes arrays or their uint16 bits."""
     def load(dst: torch.Tensor, a) -> None:
         if isinstance(a, np.ndarray) and a.dtype == np.uint16:
             t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -224,66 +306,86 @@ def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
                              f"{tuple(dst.shape)} {dst.dtype}")
         dst.copy_(t)
 
-    expect = set(_top_shapes(cfg)) | {"blocks"}
-    if set(tree) != expect:
+    want = param_tree(params)
+    if set(tree) != set(want):
         raise ValueError(f"parameter tree has {sorted(tree)}, expected "
-                         f"{sorted(expect)}")
-    for name, w in params.p.items():
-        load(w, tree[name])
-    blocks = tree["blocks"]
-    if set(blocks) != set(_block_shapes(cfg)):
-        raise ValueError(f"blocks have {sorted(blocks)}, expected "
-                         f"{sorted(_block_shapes(cfg))}")
-    for i, block in enumerate(params.blocks):
-        for name, w in block.p.items():
-            load(w, blocks[name][i])
+                         f"{sorted(want)}")
+    got = unstacked(tree)
+    if paths(got) != paths(want):
+        raise ValueError(f"the layers' leaves {paths(got)[:4]}... do not "
+                         f"match the model's {paths(want)[:4]}...")
+    for dst, a in zip(leaves(want), leaves(got)):
+        load(dst, a)
     return params
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                       device="cuda") -> Transformer:
     """The JAX parameter pytree of ``repro.models.model.init_params``
-    (dense, vlm or moe family), given as numpy arrays, as a ``Transformer``
-    on ``device``, bit for bit.  bf16 leaves may be ml_dtypes arrays or
-    their uint16 bits; ``tree["blocks"]`` holds the stacked (L, ...)
-    leaves."""
+    (dense, vlm, moe, ssm or hybrid family), given as numpy arrays, as a
+    ``Transformer`` on ``device``, bit for bit.  bf16 leaves may be
+    ml_dtypes arrays or their uint16 bits."""
     return load_params(Transformer(cfg, device), tree)
 
 
 def param_tree(params: Transformer) -> Dict[str, Any]:
     """The model's parameters as a tree: the top weights by name and
-    ``"blocks"``, a list of one dict a layer.  The leaves are the model's
-    own ``nn.Parameter``s."""
+    ``"blocks"``, a list of one dict a layer (a hybrid: ``"mamba"``, a
+    list of one list a group of one dict a layer, and ``"shared"``, one
+    dict).  The leaves are the model's own ``nn.Parameter``s."""
     tree: Dict[str, Any] = dict(params.p.items())
-    tree["blocks"] = [dict(block.p.items()) for block in params.blocks]
+    if params.cfg.family == "hybrid":
+        tree["mamba"] = [[dict(block.p.items()) for block in group]
+                         for group in params.mamba]
+        tree["shared"] = dict(params.shared.p.items())
+    else:
+        tree["blocks"] = [dict(block.p.items()) for block in params.blocks]
     return tree
 
 
 def stacked(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
     """A tree shaped as ``param_tree`` (weights, gradients or moments) in
-    the JAX package's layout: ``"blocks"`` a dict of (L, ...) leaves.  The
-    leaves are detached copies, on ``device`` if given (else where they
-    are)."""
+    the JAX package's layout: ``"blocks"`` a dict of (L, ...) leaves, a
+    hybrid's ``"mamba"`` of (G, every, ...) leaves.  The leaves are
+    detached copies, on ``device`` if given (else where they are)."""
     def to(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
         return t.detach().to(t.device if device is None else device,
                              copy=copy)
 
-    out = {name: to(t, copy=True) for name, t in tree.items()
-           if name != "blocks"}
-    layers_ = tree["blocks"]
-    out["blocks"] = {name: torch.stack([to(layer[name]) for layer in layers_])
-                     for name in layers_[0]}
+    def stack(layers_: list) -> Dict[str, torch.Tensor]:
+        if isinstance(layers_[0], list):                   # groups of layers
+            groups = [stack(group) for group in layers_]
+            return {name: torch.stack([g[name] for g in groups])
+                    for name in groups[0]}
+        return {name: torch.stack([to(layer[name]) for layer in layers_])
+                for name in layers_[0]}
+
+    out = {}
+    for name, t in tree.items():
+        if name in ("blocks", "mamba"):
+            out[name] = stack(t)
+        elif name == "shared":
+            out[name] = {k: to(v, copy=True) for k, v in t.items()}
+        else:
+            out[name] = to(t, copy=True)
     return out
 
 
 def unstacked(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """The inverse of ``stacked``: ``"blocks"`` as a list of one dict a
-    layer, whose leaves are views of the stacked ones."""
-    out = {name: t for name, t in tree.items() if name != "blocks"}
-    blocks = tree["blocks"]
-    L = len(next(iter(blocks.values())))
-    out["blocks"] = [{name: t[i] for name, t in blocks.items()}
-                     for i in range(L)]
+    layer (``"mamba"`` a list of G lists), whose leaves are views of the
+    stacked ones."""
+    out = {}
+    for name, t in tree.items():
+        if name == "blocks":
+            L = len(next(iter(t.values())))
+            out[name] = [{k: v[i] for k, v in t.items()} for i in range(L)]
+        elif name == "mamba":
+            G, every = next(iter(t.values())).shape[:2]
+            out[name] = [[{k: v[g, i] for k, v in t.items()}
+                          for i in range(every)] for g in range(G)]
+        else:
+            out[name] = t
     return out
 
 
@@ -320,7 +422,7 @@ def _save_dots(ctx, op, *args, **kwargs):
     return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
 
 
-def _remat(block: DenseBlock, cfg: ModelConfig):
+def _remat(block: nn.Module, cfg: ModelConfig):
     """The block as the backward sees it: ``"none"`` keeps every
     activation; ``"nothing_saveable"`` keeps the block's input and reruns
     its forward in the backward; ``"dots"`` also keeps the outputs of its
@@ -340,10 +442,22 @@ def _remat(block: DenseBlock, cfg: ModelConfig):
 def _run_decoder_train(params: Transformer, x: torch.Tensor,
                        cfg: ModelConfig, positions: torch.Tensor,
                        positions3: Optional[torch.Tensor] = None):
-    """Every block in turn under the config's remat policy; returns the
-    residual stream and the sum of the layers' load-balance losses (0
-    outside the moe family)."""
+    """Every block in turn under the config's remat policy (a hybrid's
+    shared block after each group, its gradient summed over the groups);
+    returns the residual stream and the sum of the layers' load-balance
+    losses (0 outside the moe family)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for block in params.blocks:
+            x = _remat(block, cfg)(x, cfg)
+        return x, aux
+    if cfg.family == "hybrid":
+        for group in params.mamba:
+            for block in group:
+                x = _remat(block, cfg)(x, cfg)
+            x, _ = _remat(params.shared, cfg)(x, cfg, positions=positions,
+                                              positions3=positions3)
+        return x, aux
     for block in params.blocks:
         x, aux_l = _remat(block, cfg)(x, cfg, positions=positions,
                                       positions3=positions3)
@@ -403,25 +517,52 @@ def forward_loss(params: Transformer, batch: Mapping[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
-               dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed K/V (L, B, W, KV, dh) in the param dtype (or ``dtype``) and
-    positions (L, B, W) at the "unwritten" sentinel 2^30, where W is
-    ``cache_len``, or ``min(cache_len, swa_window)`` for a sliding-window
-    config (a ring)."""
-    _require_ported(cfg)
-    device = require_device(device)
-    dt = dtype or _pdt(cfg)
-    L, B, KV, dh = cfg.n_layers, batch_size, cfg.n_kv_heads, cfg.d_head
-    W = min(cache_len, cfg.swa_window) if cfg.swa_window else cache_len
+def _attn_cache(L: int, B: int, W: int, cfg: ModelConfig, dt,
+                device) -> Dict[str, torch.Tensor]:
+    KV, dh = cfg.n_kv_heads, cfg.d_head
     return {"k": torch.zeros((L, B, W, KV, dh), dtype=dt, device=device),
             "v": torch.zeros((L, B, W, KV, dh), dtype=dt, device=device),
             "pos": torch.full((L, B, W), layers.UNWRITTEN, dtype=torch.int32,
                               device=device)}
 
 
-def _layer_cache(cache: Dict[str, torch.Tensor], i: int) -> dict:
-    return {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
+def _ssm_cache(lead: Tuple[int, ...], B: int, cfg: ModelConfig, dt,
+               device) -> Dict[str, torch.Tensor]:
+    return {"ssm": torch.zeros((*lead, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((*lead, B, cfg.ssm_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state), dtype=dt,
+                                device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
+               dtype=None, device="cuda") -> Dict:
+    """Zeroed K/V (L, B, W, KV, dh) in the param dtype (or ``dtype``) and
+    positions (L, B, W) at the "unwritten" sentinel 2^30, where W is
+    ``cache_len``, or ``min(cache_len, swa_window)`` for a sliding-window
+    config (a ring).  An ssm config: zeroed {"ssm": (L, B, H, hd, N) f32,
+    "conv": (L, B, K - 1, d_inner + 2N)}; a hybrid: {"mamba": those at (G,
+    every, ...), "shared": K/V and positions of G layers over
+    ``cache_len``}."""
+    _require_ported(cfg)
+    device = require_device(device)
+    dt = dtype or _pdt(cfg)
+    B = batch_size
+    if cfg.family == "ssm":
+        return _ssm_cache((cfg.n_layers,), B, cfg, dt, device)
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        G = cfg.n_layers // every
+        return {"mamba": _ssm_cache((G, every), B, cfg, dt, device),
+                "shared": _attn_cache(G, B, cache_len, cfg, dt, device)}
+    W = min(cache_len, cfg.swa_window) if cfg.swa_window else cache_len
+    return _attn_cache(cfg.n_layers, B, W, cfg, dt, device)
+
+
+def _layer_cache(cache: Dict[str, torch.Tensor], *i) -> dict:
+    """One layer's slices (views) of a stacked cache."""
+    return {name: t[i] for name, t in cache.items()}
 
 
 def _embed_inputs(top: Mapping[str, torch.Tensor],
@@ -452,45 +593,70 @@ def _logits(params: Transformer, x: torch.Tensor, cfg: ModelConfig):
     return (x[:, 0] @ params.p["head"]).float()
 
 
+def _prefill_mamba(block: MambaBlock, x: torch.Tensor, cfg: ModelConfig):
+    """One mamba layer over the prompt: (x, (its ssm state, its conv
+    state)) from the same chunk scan."""
+    y, state = ssm.ssd_forward(block.p, layers.rmsnorm(x, block.p["norm"]),
+                               cfg, return_state=True)
+    return x + y, state
+
+
+def _stack_states(states: list) -> Dict[str, torch.Tensor]:
+    return {"ssm": torch.stack([s for s, _ in states]),
+            "conv": torch.stack([c for _, c in states])}
+
+
 @torch.no_grad()
 def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
-            cfg: ModelConfig,
-            cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            cfg: ModelConfig, cache_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt ``batch["tokens"]`` (B, S) (with a vision_stub
     config's ``patch_embeds`` and an M-RoPE config's ``positions3``, where
     given): the last position's logits (B, V) f32 and the filled cache.
-    ``cache_len`` sizes the cache (at least S; serving passes prompt + new
-    tokens)."""
+    ``cache_len`` sizes the attention cache (at least S; serving passes
+    prompt + new tokens); an ssm cache takes the scan's final states and
+    ignores it, as the reference's does."""
     _require_ported(cfg)
     B, S = batch["tokens"].shape
     cache_len = max(cache_len, S)
     x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
+    if cfg.family == "ssm":
+        states = []
+        for block in params.blocks:
+            x, state = _prefill_mamba(block, x, cfg)
+            states.append(state)
+        return _logits(params, x[:, -1:], cfg), _stack_states(states)
     cache = init_cache(cfg, B, cache_len, device=params.device)
+    if cfg.family == "hybrid":
+        groups = []
+        for g, group in enumerate(params.mamba):
+            states = []
+            for block in group:
+                x, state = _prefill_mamba(block, x, cfg)
+                states.append(state)
+            groups.append(_stack_states(states))
+            x, _ = params.shared(x, cfg, positions=positions,
+                                 positions3=positions3,
+                                 cache=_layer_cache(cache["shared"], g))
+        cache["mamba"] = {name: torch.stack([s[name] for s in groups])
+                          for name in ("ssm", "conv")}
+        return _logits(params, x[:, -1:], cfg), cache
     for i, block in enumerate(params.blocks):
         x, _ = block(x, cfg, positions=positions, positions3=positions3,
                      cache=_layer_cache(cache, i))
     return _logits(params, x[:, -1:], cfg), cache
 
 
-@torch.no_grad()
-def decode_step(params: Transformer, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step.  token: (B, 1) int; cache_len: (B,) int32 filled
-    length (the new token's position).  Writes the token's K/V at slot
-    ``cache_len[0]`` (``cache_len % swa_window`` in a ring) in place and
-    returns (logits (B, V) f32, the cache)."""
-    _require_ported(cfg)
-    B = token.shape[0]
-    x = params.p["embed"][token.long()]
-    positions = cache_len[:, None].to(torch.int32).expand(B, 1)
+def _decode_attention(cfg: ModelConfig, cache: Dict[str, torch.Tensor],
+                      cache_len: torch.Tensor, positions: torch.Tensor):
+    """(write slot, rope angles, mask bias) of a decode step's attention
+    layers.  Every layer writes the same position at the same slot, so the
+    angles (M-RoPE's over the position broadcast to 3 streams, as the
+    reference's) and the mask over the written cache serve all of them."""
+    B = positions.shape[0]
     write_pos = cache_len
     W = cache["k"].shape[2]
     if cfg.swa_window and W == cfg.swa_window:
         write_pos = cache_len % cfg.swa_window      # ring buffer slot
-    # every layer writes the same position at the same slot: the rope
-    # angles (M-RoPE's over the position broadcast to 3 streams, as the
-    # reference's) and the mask over the written cache serve all of them
     if cfg.mrope:
         angles = layers.mrope_angles(positions.expand(3, B, 1), cfg.d_head,
                                      cfg.rope_theta, cfg.mrope_sections)
@@ -499,6 +665,37 @@ def decode_step(params: Transformer, token: torch.Tensor,
     slot = write_pos[:1].long().clamp(0, W - 1)
     pos_k = cache["pos"][0].index_copy(1, slot, positions)
     bias = layers._mask_bias(positions, pos_k, None, True, cfg.swa_window)
+    return write_pos, angles, bias
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, token: torch.Tensor, cache: Dict,
+                cache_len: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One decode step.  token: (B, 1) int; cache_len: (B,) int32 filled
+    length (the new token's position).  Writes the token's K/V at slot
+    ``cache_len[0]`` (``cache_len % swa_window`` in a ring), and a mamba
+    layer's state and conv ring, in place, with no host sync; returns
+    (logits (B, V) f32, the cache)."""
+    _require_ported(cfg)
+    B = token.shape[0]
+    x = params.p["embed"][token.long()]
+    positions = cache_len[:, None].to(torch.int32).expand(B, 1)
+    if cfg.family == "ssm":
+        for i, block in enumerate(params.blocks):
+            x = block(x, cfg, cache=_layer_cache(cache, i))
+        return _logits(params, x, cfg), cache
+    attn = cache["shared"] if cfg.family == "hybrid" else cache
+    write_pos, angles, bias = _decode_attention(cfg, attn, cache_len,
+                                                positions)
+    if cfg.family == "hybrid":
+        for g, group in enumerate(params.mamba):
+            for i, block in enumerate(group):
+                x = block(x, cfg, cache=_layer_cache(cache["mamba"], g, i))
+            x, _ = params.shared(x, cfg, positions=positions,
+                                 cache=_layer_cache(attn, g),
+                                 kv_len=write_pos, angles=angles, bias=bias)
+        return _logits(params, x, cfg), cache
     for i, block in enumerate(params.blocks):
         x, _ = block(x, cfg, positions=positions,
                      cache=_layer_cache(cache, i), kv_len=write_pos,

@@ -427,3 +427,45 @@ def test_moe_block_on_card_routes_as_the_cpu_and_repeats(arch, cuda):
     assert all(_bits(r) == _bits(runs[0]) for r in runs)
     err = (runs[0].cpu().float() - want.float()).abs().max()
     assert float(err) <= 2e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_decode_on_card_makes_no_host_sync(arch, cuda):
+    """A reduced ssm (and hybrid) model in f32 on the card: ``decode_step``
+    writes its state, conv ring (and K/V) in place with no host sync
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and
+    greedy generation gives the CPU port's tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32")
+    cpu = model.init_params(cfg, 3, device="cpu")
+    card = model.load_params(model.Transformer(cfg, cuda),
+                             model.stacked(model.param_tree(cpu)))
+    gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                            dtype=torch.int32)
+    _, cache = model.prefill(card, {"tokens": prompts.to(cuda)}, cfg,
+                             cache_len=16)
+    token = prompts[:, -1:].to(cuda)
+    at = torch.full((2,), 12, dtype=torch.int32, device=cuda)
+
+    def watched(c):
+        return ([c["ssm"], c["conv"]] if arch == "mamba2-1.3b"
+                else [c["mamba"]["ssm"], c["shared"]["k"]])
+
+    before = [t.clone() for t in watched(cache)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, after = model.decode_step(card, token, cache, at, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert after is cache and logits.shape == (2, cfg.vocab)
+    assert all(not torch.equal(a, b) for a, b in zip(before, watched(cache)))
+    want = serve.generate(cfg, cpu, prompts, gen_len=6)
+    got = serve.generate(cfg, card, prompts.to(cuda), gen_len=6)
+    assert torch.equal(got.cpu(), want)

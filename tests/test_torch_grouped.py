@@ -9,6 +9,10 @@ f32/bf16/int32/f64 grid with shards {1, 3}, empty groups, keys outside
 on its jnp backend.  Tolerance is zero: raw bytes compare, so a zero's sign
 counts.  The segmented kernel itself is held against the plain round on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+The cases are split over this file and ``test_torch_grouped_grid.py``, so
+that xdist's ``--dist loadfile`` can run them on several workers; those
+files import their helpers from here.
 """
 import contextlib
 
@@ -130,31 +134,6 @@ def test_grouped_pieces_match_jax(dtype):
             tbl.permute(1, 2, 0, 3).reshape(R, -1),
             tab.permute(1, 2, 0, 3).reshape(R, -1), cap)
         assert tb(got) == jb(want)
-
-
-def _dists(dtype):
-    base = ["uniform", "zipf", "all_equal", "ties"]
-    return base + ([] if dtype == "int32" else ["signed_zeros"])
-
-
-@pytest.mark.parametrize("shards", (1, 3))
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_gk_select_grouped_matches_jax(dtype, shards):
-    k = _keys(shards, seed=shards)
-    for dist in _dists(dtype):
-        v = _values(dist, dtype, shards, seed=shards)
-        with _x64(dtype):
-            want = np.asarray(jgr.gk_select_grouped(
-                jnp.asarray(v), jnp.asarray(k), QS, num_groups=G, eps=EPS))
-        for block_select in (False, True):
-            got = repro_torch.gk_select_grouped(
-                v, k, QS, num_groups=G, eps=EPS, block_select=block_select,
-                device="cpu")
-            assert tb(got) == jb(want), (dist, block_select)
-    # an empty group answers the high sentinel
-    assert tb(got[1]) == tb(torch.full_like(got[1], float("inf"))
-                            if got.is_floating_point()
-                            else torch.full_like(got[1], 2 ** 31 - 1))
 
 
 def test_gk_select_grouped_block_select_matches_jax():

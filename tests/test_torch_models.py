@@ -16,8 +16,12 @@ JAX's max |logit| (or max |output| for a layer):
 Also: decode past the window (the ring slot ``cache_len % window``), the
 reference's SWA prefill with a prompt longer than the cache (every query
 attends over the last window alone, pinned here as the reference's
-behaviour), greedy tokens over 8 steps, and the families the port does not
+behaviour), greedy tokens over 8 steps, and the family the port does not
 have raising.
+
+The cases are split over this file and ``test_torch_models_decode.py`` and
+``test_torch_models_depth.py``, so that xdist's ``--dist loadfile`` can
+run them on several workers; those files import their helpers from here.
 """
 import dataclasses
 
@@ -34,7 +38,6 @@ from repro.models import layers as JL                         # noqa: E402
 from repro.models import model as JM                          # noqa: E402
 from repro_torch.configs import (ARCH_IDS, REGISTRY,           # noqa: E402
                                  get_config)
-from repro_torch.launch import serve as TS                    # noqa: E402
 from repro_torch.models import layers as TL                   # noqa: E402
 from repro_torch.models import model as TM                    # noqa: E402
 
@@ -73,11 +76,6 @@ def _models(arch, dtype, seed=0):
     tp = TM.params_from_numpy(_cfg(arch, dtype), jax.tree.map(np.asarray, jp),
                               device="cpu")
     return jcfg, jp, tp
-
-
-def _prompts(cfg, n, seed):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, n),
-                                                dtype=np.int32)
 
 
 def _assert_cache(jc, tc, tol):
@@ -200,183 +198,3 @@ def test_attn_block_with_cache_matches_jax(arch):
     assert _rel(to.numpy(), jo) <= 1e-3
     _assert_cache(jc, tc, 1e-6)
     assert (tc["pos"][:, 7:] == TL.UNWRITTEN).all()
-
-
-# ---------------------------------------------------------------------------
-# prefill and decode
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_decode_match_jax(arch, dtype):
-    """Prefill of S = 20 into a cache of 26 (the blockwise path at these
-    blocks), then 3 decode steps; logits and every cache leaf each step."""
-    jcfg, jp, tp = _models(arch, dtype, seed=3)
-    cfg, C = tp.cfg, S + 6
-    toks = _prompts(cfg, S + 3, seed=4)
-    jl, jc = jax.jit(lambda p, t: JM.prefill(p, {"tokens": t}, jcfg,
-                                             cache_len=C))(jp, toks[:, :S])
-    tl, tc = TM.prefill(tp, {"tokens": _t(toks[:, :S])}, cfg, cache_len=C)
-    assert tl.dtype == torch.float32 and tl.shape == (B, cfg.vocab)
-    assert _rel(tl.numpy(), jl) <= TOL[dtype, "prefill"]
-    _assert_cache(jc, tc, TOL[dtype, "prefill"])
-    decode = jax.jit(lambda p, t, c, n: JM.decode_step(p, t, c, n, jcfg))
-    for i in range(3):
-        n = np.full((B,), S + i, np.int32)
-        tok = toks[:, S + i:S + i + 1]
-        jl, jc = decode(jp, tok, jc, n)
-        tl, tc = TM.decode_step(tp, _t(tok), tc, _t(n), cfg)
-        assert _rel(tl.numpy(), jl) <= TOL[dtype, "decode"], i
-        _assert_cache(jc, tc, TOL[dtype, "decode"])
-
-
-def test_decode_past_the_window_uses_the_ring():
-    """h2o-danube (window 32 at reduced): a prompt of 24 in a ring of
-    min(24 + 16, 32) = 32 slots, then 14 decode steps, the last 6 of them
-    writing at ``cache_len % 32`` over the oldest positions."""
-    jcfg, jp, tp = _models("h2o-danube-1.8b", "float32", seed=5)
-    cfg = tp.cfg
-    W = cfg.swa_window
-    toks = _prompts(cfg, 24 + 14, seed=6)
-    jl, jc = jax.jit(lambda p, t: JM.prefill(p, {"tokens": t}, jcfg,
-                                             cache_len=40))(jp, toks[:, :24])
-    tl, tc = TM.prefill(tp, {"tokens": _t(toks[:, :24])}, cfg, cache_len=40)
-    assert tc["k"].shape[2] == W
-    assert _rel(tl.numpy(), jl) <= TOL["float32", "prefill"]
-    decode = jax.jit(lambda p, t, c, n: JM.decode_step(p, t, c, n, jcfg))
-    for i in range(14):
-        n = np.full((B,), 24 + i, np.int32)
-        tok = toks[:, 24 + i:25 + i]
-        jl, jc = decode(jp, tok, jc, n)
-        tl, tc = TM.decode_step(tp, _t(tok), tc, _t(n), cfg)
-        assert _rel(tl.numpy(), jl) <= TOL["float32", "decode"], i
-        _assert_cache(jc, tc, TOL["float32", "decode"])
-    # positions 32..37 overwrote slots 0..5
-    assert tc["pos"][0, 0, :6].tolist() == list(range(32, 38))
-    assert tc["pos"][0, 0, 6:].tolist() == list(range(6, 32))
-
-
-def test_swa_prefill_longer_than_the_cache_keeps_the_reference_quirk():
-    """A prompt of 40 into a ring of 32 (cache_len 40 > window 32 writes
-    only positions 8..39 at slots 0..31), and every query then attends
-    over that cache alone: queries before the last window do not see their
-    own window.  The port mirrors the reference, so its logits are JAX's
-    and differ from the same prompt run with no cache."""
-    jcfg, jp, tp = _models("h2o-danube-1.8b", "float32", seed=7)
-    cfg = tp.cfg
-    toks = _prompts(cfg, 40, seed=8)
-    jl, jc = jax.jit(lambda p, t: JM.prefill(p, {"tokens": t}, jcfg,
-                                             cache_len=40))(jp, toks)
-    tl, tc = TM.prefill(tp, {"tokens": _t(toks)}, cfg, cache_len=40)
-    assert tc["pos"][0, 0].tolist() == list(range(8, 40))
-    assert _rel(tl.numpy(), jl) <= TOL["float32", "prefill"]
-    _assert_cache(jc, tc, TOL["float32", "prefill"])
-    # the same blocks with no cache: every query sees its own window
-    x, positions, _ = TM._embed_inputs(tp.p, {"tokens": _t(toks)}, cfg)
-    for block in tp.blocks:
-        x, _ = block(x, positions=positions)
-    full = TM._logits(tp, x[:, -1:], cfg)
-    assert _rel(full.numpy(), jl) > 1e-3
-
-
-def test_greedy_tokens_match_jax():
-    """8 greedy steps of granite-8b (reduced, f32 params): each token is
-    JAX's wherever JAX's top-2 logit gap exceeds the decode tolerance, up
-    to the first step where it does not (the two runs may part there).
-    Sampling draws from a seeded ``torch.Generator``: reproducible, but
-    not JAX's draws, so it is compared with itself only."""
-    jcfg, jp, tp = _models("granite-8b", "float32", seed=9)
-    cfg = tp.cfg
-    prompts = _prompts(cfg, S, seed=10)
-    got = TS.generate(cfg, tp, _t(prompts), gen_len=8)
-    assert got.dtype == torch.int32 and got.shape == (B, 8)
-    jl, jc = jax.jit(lambda p, t: JM.prefill(p, {"tokens": t}, jcfg,
-                                             cache_len=S + 8))(jp, prompts)
-    decode = jax.jit(lambda p, t, c, n: JM.decode_step(p, t, c, n, jcfg))
-    checked = 0
-    for i in range(8):
-        lg = np.asarray(jl)
-        top2 = np.sort(lg, axis=-1)[:, -2:]
-        tol = TOL["float32", "decode"] * np.abs(lg).max()
-        if not (top2[:, 1] - top2[:, 0] > tol).all():
-            break
-        tok = lg.argmax(-1).astype(np.int32)
-        assert got[:, i].tolist() == tok.tolist(), i
-        checked += 1
-        jl, jc = decode(jp, tok[:, None], jc, np.full((B,), S + i, np.int32))
-    assert checked >= 4
-    a = TS.generate(cfg, tp, _t(prompts), gen_len=4, greedy=False, seed=3)
-    b = TS.generate(cfg, tp, _t(prompts), gen_len=4, greedy=False, seed=3)
-    assert torch.equal(a, b)
-
-
-def test_bf16_decode_gap_at_depth_is_the_reference_s():
-    """With bf16 weights, decode after prefill(S) parts from prefill(S + 1)
-    by the rounding of every layer's matmuls and residual, which grows with
-    depth and width: at granite-8b's 36 layers and d_model 256 both
-    packages are already past 1e-2 of the logit scale.  The port's gap
-    stays within a factor 1.5 of JAX's on the same weights, and in both
-    packages the decode is no farther (at most 1.5 x) from an f32
-    evaluation of the same weights than the prefill is: the gap is the
-    bf16 model's own, not the decode's.  ``tests/_decode_gap.py`` runs the
-    same at wider widths."""
-    from _decode_gap import gaps
-
-    got = gaps(256, n_heads=4, n_kv_heads=1, d_head=64, d_ff=896)
-    jax_, port = got["jax"], got["port"]
-    assert jax_["gap"] > 1e-2
-    assert jax_["gap"] / 1.5 <= port["gap"] <= 1.5 * jax_["gap"], got
-    for side in (jax_, port):
-        assert side["decode_vs_f32"] <= 1.5 * side["prefill_vs_f32"], got
-
-
-# ---------------------------------------------------------------------------
-# construction
-# ---------------------------------------------------------------------------
-
-
-def test_init_params_is_seeded_with_the_reference_scales():
-    cfg = get_config("granite-8b").reduced()
-    a = TM.init_params(cfg, 0, device="cpu")
-    b = TM.init_params(cfg, 0, device="cpu")
-    c = TM.init_params(cfg, 1, device="cpu")
-    assert torch.equal(a.p["embed"], b.p["embed"])
-    assert not torch.equal(a.p["embed"], c.p["embed"])
-    assert a.p["embed"].dtype == torch.bfloat16
-    assert a.blocks[0].p["ln1"].dtype == torch.float32
-    assert (a.blocks[1].p["ln2"] == 1).all() and len(a.blocks) == cfg.n_layers
-    so = 0.02 / (2 * cfg.n_layers) ** 0.5
-    assert abs(float(a.p["head"].float().std()) - 0.02) < 2e-3
-    assert abs(float(a.blocks[0].p["wo"].float().std()) - so) < 0.1 * so
-    n = sum(p.numel() for p in a.parameters())
-    assert n == cfg.param_count() + cfg.d_model     # + final_norm
-
-
-def test_params_from_numpy_is_bit_exact_and_takes_uint16_bits():
-    jcfg, jp, tp = _models("stablelm-1.6b", "bfloat16", seed=11)
-    tree = jax.tree.map(np.asarray, jp)
-    bits = jax.tree.map(lambda a: a.view(np.uint16)
-                        if a.dtype.name == "bfloat16" else a, tree)
-    tp2 = TM.params_from_numpy(tp.cfg, bits, device="cpu")
-    for (name, a), (_, b) in zip(tp.named_parameters(),
-                                 tp2.named_parameters()):
-        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
-                           else a, b.view(torch.int16)
-                           if b.dtype == torch.bfloat16 else b), name
-    np.testing.assert_array_equal(
-        tp.blocks[1].p["wq"].view(torch.int16).numpy(),
-        tree["blocks"]["wq"][1].view(np.int16))
-    with pytest.raises(ValueError):
-        TM.params_from_numpy(tp.cfg, {"embed": tree["embed"]}, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    for build in (lambda: TM.Transformer(cfg, device="cpu"),
-                  lambda: TM.init_params(cfg, 0, device="cpu"),
-                  lambda: TM.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()

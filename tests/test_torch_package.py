@@ -47,6 +47,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.launch.ingest_pool, repro_torch.launch.serve, "
             "repro_torch.models.config, repro_torch.models.layers, "
             "repro_torch.models.model, repro_torch.models.moe, "
+            "repro_torch.models.ssm, repro_torch.launch.roofline, "
             "repro_torch.configs, "
             "repro_torch.optim.quantile_ops, repro_torch.optim.adamw, "
             "repro_torch.checkpoint.checkpoint, repro_torch.pytree, "
@@ -88,7 +89,8 @@ def test_layout_mirrors_the_jax_package():
                 "core/distributed.py", "launch/quantile_service.py",
                 "launch/ingest_pool.py", "launch/serve.py",
                 "models/config.py", "models/layers.py", "models/model.py",
-                "models/moe.py", "configs/__init__.py", "optim/quantile_ops.py",
+                "models/moe.py", "models/ssm.py", "launch/roofline.py",
+                "configs/__init__.py", "optim/quantile_ops.py",
                 "optim/adamw.py", "checkpoint/checkpoint.py",
                 "data/pipeline.py", "distributed/fault_tolerance.py",
                 "launch/steps.py", "launch/train.py",

@@ -8,6 +8,11 @@ ragged leaves, ``channelwise_exact_quantile`` over dense channels along
 ``quantile_clip_by_value`` with both methods, over the f32/bf16/int32/f64
 grid of ``tests/_grid.py`` (f64 under ``jax.enable_x64``).  Tolerance is
 zero: raw bytes compare.  Every answer is also the numpy sort oracle's.
+
+The cases are split over this file and ``test_torch_quantile_channels.py``
+and ``test_torch_quantile_clip.py``, so that xdist's ``--dist loadfile``
+can run them on several workers; those files import their helpers from
+here.
 """
 import contextlib
 
@@ -111,48 +116,3 @@ def test_pytree_radix_quantile_matches_jax(dtype):
         assert tb(got) == oracle_kth(absf, k).tobytes()
     with pytest.raises(ValueError):
         T.pytree_radix_quantile({}, 0.5)
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_channelwise_exact_quantile_matches_jax(dtype):
-    with _x64(dtype):
-        x = make_case("zipf" if dtype == "int32" else "uniform", dtype,
-                      6 * 33 * 5, seed=2).reshape(6, 33, 5)
-        for axis in (0, -1):
-            for q in (0.001, 0.5, 0.999):
-                want = J.channelwise_exact_quantile(jnp.asarray(x), q,
-                                                    axis=axis)
-                got = T.channelwise_exact_quantile(_t(x), q, axis=axis)
-                assert tb(got) == jb(want), (axis, q)
-                xc = np.moveaxis(x, axis, 0).reshape(x.shape[axis], -1)
-                k = max(1, int(np.ceil(q * xc.shape[1])))
-                assert tb(got) == np.stack(
-                    [oracle_kth(c, k) for c in xc]).tobytes()
-        # ragged channels, one empty, sizes not divisible by the partitions
-        flat = make_case("ties", dtype, 5 + 17 + 1 + 40, seed=3)
-        chans = np.split(flat, [5, 5, 22, 23])
-        assert chans[1].size == 0
-        for q in (0.001, 0.5, 0.999):
-            want = J.channelwise_exact_quantile(
-                [jnp.asarray(c) for c in chans], q)
-            got = T.channelwise_exact_quantile([_t(c) for c in chans], q)
-            assert tb(got) == jb(want), q
-    with pytest.raises(ValueError):
-        T.channelwise_exact_quantile([], 0.5)
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("method", ["radix", "gk_select"])
-def test_quantile_clip_by_value_matches_jax(dtype, method):
-    with _x64(dtype):
-        tree, _ = _tree(dtype, seed=4)
-        jt, tt = _map(jnp.asarray, tree), _map(_t, tree)
-        for q in (0.5, 0.999):
-            jc, jthr = J.quantile_clip_by_value(jt, q, method=method)
-            tc, tthr = T.quantile_clip_by_value(tt, q, method=method)
-            assert tb(tthr) == jb(jthr), q
-            jl, tl = jax.tree.leaves(jc), T.tree_leaves(tc)
-            assert len(jl) == len(tl) == 4
-            for a, b in zip(jl, tl):
-                assert tb(b) == jb(a), q
-            assert isinstance(tc["a"][1], tuple)

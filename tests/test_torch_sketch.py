@@ -5,6 +5,11 @@ For each dtype of ``tests/_grid.py`` the same numpy streams (ties, mixed
 -0.0/+0.0, the dtype's high sentinel, ragged valid counts including 0) go
 through ``repro.core.sketch`` and ``repro_torch.core.sketch``: every leaf of
 every state and every answer must have the same bytes.  Tolerance is zero.
+
+The cases are split over this file and ``test_torch_sketch_merge.py``,
+``test_torch_sketch_query.py`` and ``test_torch_sketch_state.py``, so that
+xdist's ``--dist loadfile`` can run them on several workers; those files
+import their helpers from here.
 """
 import contextlib
 
@@ -132,85 +137,6 @@ def test_sketch_update_padded_matches_jax(dtype):
             assert_state(js, ts)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sketch_update_batch_matches_jax(dtype):
-    with _x64(dtype):
-        _jax_stacked(dtype, 5, 6, seed=3)
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sketch_merges_match_jax(dtype):
-    with _x64(dtype):
-        ja, ta = _jax_stacked(dtype, 4, 4, seed=5)
-        jb_, tb_ = _jax_stacked(dtype, 4, 3, seed=6)
-        jc, tc = _jax_stacked(dtype, 4, 2, seed=7)
-        assert_state(J.sketch_merge_batch(ja, jb_),
-                     T.sketch_merge_batch(ta, tb_))
-        for k in (1, 2, 3):
-            assert_state(J.sketch_merge_many([ja, jb_, jc][:k]),
-                         T.sketch_merge_many([ta, tb_, tc][:k]))
-        # one-row merges, an empty side included (row 0 of a fresh table)
-        empty_j = J.sketch_unstack(J.sketch_init_stack(
-            1, BUDGET, ja.values.dtype))[0]
-        empty_t = T.sketch_unstack(T.sketch_init_stack(
-            1, BUDGET, ta.values.dtype, device="cpu"))[0]
-        rows_j, rows_t = J.sketch_unstack(ja), T.sketch_unstack(ta)
-        for a_j, a_t in zip(rows_j, rows_t):
-            assert_state(a_j, a_t)
-            assert_state(J.sketch_merge(a_j, rows_j[1]),
-                         T.sketch_merge(a_t, rows_t[1]))
-            assert_state(J.sketch_merge(empty_j, a_j),
-                         T.sketch_merge(empty_t, a_t))
-        for k in (1, 2, 3, 4):
-            assert_state(J.sketch_merge_rows(J.sketch_stack(rows_j[:k])),
-                         T.sketch_merge_rows(T.sketch_stack(rows_t[:k])))
-        with pytest.raises(ValueError):
-            T.sketch_merge(rows_t[0], T.sketch_init(BUDGET // 2,
-                                                    ta.values.dtype,
-                                                    device="cpu"))
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sketch_queries_match_jax(dtype):
-    with _x64(dtype):
-        js, ts = _jax_stacked(dtype, 4, 5, seed=11)
-        n_max = int(np.max(np.asarray(js.n)))
-        ks = np.array([[1, 2, n_max // 3, n_max, n_max + 5, 0]] * 4, np.int32)
-        assert jb(J.sketch_query_rank_batch(js, ks)) == tb(
-            T.sketch_query_rank_batch(ts, _t(ks)))
-        assert jb(J.sketch_rank_bound_batch(js)) == tb(
-            T.sketch_rank_bound_batch(ts))
-        for rj, rt in zip(J.sketch_unstack(js), T.sketch_unstack(ts)):
-            assert jb(J.sketch_rank_bound(rj)) == tb(T.sketch_rank_bound(rt))
-            for k in ks[0]:
-                assert jb(J.sketch_query_rank(rj, int(k))) == tb(
-                    T.sketch_query_rank(rt, int(k)))
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sketch_query_decayed_matches_jax(dtype):
-    with _x64(dtype):
-        js, ts = _jax_stacked(dtype, 5, 5, seed=13)
-        ages = np.array([9, 6, 3, 1, 0], np.float32)
-        for halflife in (0.7, 2.0, 5.0):
-            factors = np.exp2(-ages / halflife)
-            for q in (0.01, 0.3, 0.5, 0.9, 1.0):
-                want = jax.jit(J.sketch_query_decayed)(
-                    js, jnp.asarray(factors), jnp.float32(q))
-                got = T.sketch_query_decayed(ts, _t(factors), q)
-                assert jb(want) == tb(got), (halflife, q)
-
-
-@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 255, 256, 257, 4097, 9000])
-def test_blocked_cumsum_is_jax_cumsum(n):
-    """``jnp.cumsum`` of float32 is XLA's blocked scan; the port adds in the
-    same order."""
-    rng = np.random.default_rng(n)
-    w = (rng.integers(0, 60, size=n) * np.float32(0.70710677)).astype(
-        np.float32)
-    assert jb(jax.jit(jnp.cumsum)(w)) == tb(T.blocked_cumsum(_t(w)))
-
-
 def test_sketch_budget_init_and_stack():
     for eps in (0.5, 0.01, 1e-3, 1e-4, 1e-6):
         assert T.sketch_budget(eps) == J.sketch_budget(eps)
@@ -229,53 +155,3 @@ def test_sketch_budget_init_and_stack():
         T.sketch_stack([])
     with pytest.raises(ValueError):
         T.sketch_merge_many([])
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_state_converter_round_trips_a_jax_state(dtype):
-    with _x64(dtype):
-        js, _ = _jax_stacked(dtype, 3, 3, seed=17)
-        leaves = [np.asarray(a) for a in js]
-        if dtype == "bfloat16":
-            leaves[0] = leaves[0].view(np.uint16)    # checkpoint storage
-        ts = T.sketch_state_from_numpy(*leaves, device="cpu")
-        assert_state(js, ts)
-        back = T.sketch_state_to_numpy(ts)
-        for a, b in zip(leaves, back):
-            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-        # an ml_dtypes bfloat16 array converts as well
-        ts2 = T.sketch_state_from_numpy(*[np.asarray(a) for a in js],
-                                        device="cpu")
-        assert_state(js, ts2)
-
-
-def _gk_equal(a, b):
-    assert a.n == b.n and a.size == b.size
-    assert a.v.tobytes() == b.v.tobytes()
-    assert a.g.tobytes() == b.g.tobytes()
-    assert a.delta.tobytes() == b.delta.tobytes()
-
-
-@pytest.mark.parametrize("adaptive", [False, True])
-def test_gk_sketch_matches_jax(adaptive):
-    rng = np.random.default_rng(21)
-    kw = dict(head_size=64, compress_threshold=40, adaptive_head=adaptive)
-    js = [J.GKSketch(eps, **kw) for eps in (0.02, 0.05, 0.02)]
-    ts = [T.GKSketch(eps, **kw) for eps in (0.02, 0.05, 0.02)]
-    for i, (a, b) in enumerate(zip(js, ts)):
-        data = np.round(rng.normal(size=500 + 37 * i), 1)
-        for x in data[:50]:
-            a.insert(x)
-            b.insert(x)
-        a.insert_batch(data[50:])
-        b.insert_batch(data[50:])
-        for q in (0.01, 0.5, 0.99):
-            assert a.query(q) == b.query(q)
-        _gk_equal(a, b)
-        assert (a.flush_count, a.compress_count) == (b.flush_count,
-                                                     b.compress_count)
-    _gk_equal(js[0].merge(js[1]), ts[0].merge(ts[1]))
-    _gk_equal(J.merge_fold_left(js), T.merge_fold_left(ts))
-    _gk_equal(J.merge_tree(js), T.merge_tree(ts))
-    with pytest.raises(ValueError):
-        T.GKSketch(0.1).query_rank(1)

@@ -238,8 +238,9 @@ def test_forward_loss_and_grads_match_jax(dtype):
     batch, toks = _vision_batch(cfg, 24, seed=7)
     batch["labels"] = toks[:, 1:].copy()
     batch["labels"][:, :cfg.frontend_len] = -1
-    (jl, jm), jg = jax.value_and_grad(JM.forward_loss, has_aux=True)(
-        jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JM.forward_loss(p, b, jcfg), has_aux=True))(
+            jp, jax.tree.map(jnp.asarray, batch))
     tp.requires_grad_(True)
     tl, tm = TM.forward_loss(tp, {k: _t(v) for k, v in batch.items()}, cfg)
     tl.backward()
