@@ -132,19 +132,23 @@
    Last, 8 prompts of 4096 tokens take the blockwise attention: the first
    layer's, against the direct path, within 1e-5 of max |out| and within
    its memory bound (one q block at a time), then the whole prefill.
-10. Serves the moe, vlm, ssm and hybrid families the same way
+10. Serves the moe, vlm, ssm, hybrid and audio families the same way
    (``moe_serve_path``, ``vlm_serve_path``, ``ssm_serve_path``,
-   ``hybrid_serve_path``): olmoe-1b-7b (16 layers, d_model 2048, 16 heads
-   of 128, 64 experts of d_ff 1024, top-8, vocab 50304; 6.92 B bf16
-   weights), qwen2-vl-2b (28 layers, d_model 1536, 12 heads over 2 KV
+   ``hybrid_serve_path``, ``audio_serve_path``): olmoe-1b-7b (16 layers,
+   d_model 2048, 16 heads of 128, 64 experts of d_ff 1024, top-8, vocab
+   50304; 6.92 B bf16 weights), qwen2-vl-2b (28 layers, d_model 1536, 12 heads over 2 KV
    heads of 128, d_ff 8960, vocab 151936, M-RoPE; 1.78 B), mamba2-1.3b (48
    mamba layers, d_model 2048, 64 SSD heads of 64, state 128, vocab 50280)
    and zamba2-2.7b (54 mamba layers, d_model 2560, 80 SSD heads, state 64,
    one shared attention + SwiGLU block of 32 heads of 80 and d_ff 10240
-   after every 6, vocab 32000), at their published width and depth from
-   ``--seed``: 8 prompts of 512 positions (qwen2-vl's first
+   after every 6, vocab 32000) and seamless-m4t-large-v2 (24 encoder and
+   24 decoder layers with cross-attention, d_model 1024, 16 heads of 64,
+   d_ff 8192 GELU, vocab 256206; 1.63 B), at their published width and
+   depth from ``--seed``: 8 prompts of 512 positions (qwen2-vl's first
    256 are N(0, 1) patch embeddings on a 16 x 16 grid of ``positions3``,
-   text j at (j, j, j)), 64 greedy tokens each, cache 576.  Decode after
+   text j at (j, j, j); seamless's encoder reads 128 N(0, 1) frames a
+   prompt, the same for every prompt length), 64 greedy tokens each,
+   cache 576 (seamless's cross cache 128).  Decode after
    ``prefill(S)`` against ``prefill(S + 1)`` and each against an f32
    evaluation; the gate of 9 holds over the rows whose last position takes
    the same experts in every layer in decode and prefill(S + 1), for
@@ -224,7 +228,8 @@ SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("vlm_serve_path", "qwen2-vl-2b"),
                 ("ssm_serve_path", "mamba2-1.3b"),
-                ("hybrid_serve_path", "zamba2-2.7b"))
+                ("hybrid_serve_path", "zamba2-2.7b"),
+                ("audio_serve_path", "seamless-m4t-large-v2"))
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 TIMED_RUNS = 5
@@ -2032,7 +2037,12 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     bf16 rate, and the f32 attention scores and sums over the cache (the
     direct path), a moe layer's f32 router and a mamba layer's chunk scan
     (its four f32 products, over the chunks the prompt pads to) at the f32
-    rate.  A hybrid's shared block counts once per group."""
+    rate.  A hybrid's shared block counts once per group.  An
+    encoder-decoder adds its encoder's layers over the B x Sf frames (Sf =
+    S // enc_seq_divisor), each decoder layer's cross Q/O projections over
+    the B x S tokens and cross K/V projections over the frames (bf16), and
+    the f32 scores and sums of the cross-attention (S x Sf) and of the
+    encoder's self-attention (Sf x Sf)."""
     from repro_torch.launch import roofline
     from repro_torch.models import moe
 
@@ -2061,6 +2071,11 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
         f32 += 2 * L * T * D * E
     if cfg.modality == "vision_stub":
         matmul += 2 * B * cfg.frontend_len * D * D
+    if cfg.is_encdec:
+        E, Sf = cfg.enc_layers, S // cfg.enc_seq_divisor
+        matmul += 2 * E * layer * B * Sf
+        matmul += 2 * L * (2 * D * NH * dh * T + 2 * D * KV * dh * B * Sf)
+        f32 += 4 * L * B * NH * S * Sf * dh + 4 * E * B * NH * Sf * Sf * dh
     return matmul / roofline.PEAK_FLOPS + f32 / roofline.PEAK_FLOPS_F32
 
 
@@ -2141,20 +2156,35 @@ def _f32_logits(params, batch, cfg) -> torch.Tensor:
     are cast as it runs (no f32 copy of the model), and every activation is
     f32, the patch embeddings and the moe routing included; a mamba layer
     runs its chunked scan (whose intra-chunk product rounds its operands
-    to bf16 at any param dtype, as the reference's does)."""
+    to bf16 at any param dtype, as the reference's does); an
+    encoder-decoder runs its encoder (non-causal, then ``enc_norm``) and
+    the cross-attention over its f32 output."""
     from repro_torch.models import layers, model, ssm
 
     f32 = dataclasses.replace(cfg, param_dtype="float32")
     top = {name: w.float() for name, w in params.p.items()}
     x, pos, pos3 = model._embed_inputs(top, batch, f32)
 
-    def run(block, x):
+    def run(block, x, **kw):
         p = {name: w.float() for name, w in block.p.items()}
         if isinstance(block, model.MambaBlock):
             return x + ssm.ssd_forward(p, layers.rmsnorm(x, p["norm"]), f32)
-        return model.block_fn(p, x, f32, positions=pos, positions3=pos3)[0]
+        kw.setdefault("positions", pos)
+        return model.block_fn(p, x, f32, positions3=pos3, **kw)[0]
 
-    if cfg.family == "hybrid":
+    if cfg.is_encdec:
+        frames = batch["frames"].float()
+        B, Sf, _ = frames.shape
+        enc_pos = torch.arange(Sf, dtype=torch.int32,
+                               device=frames.device).expand(B, Sf)
+        enc = frames
+        for block in params.enc_blocks:
+            enc = run(block, enc, positions=enc_pos, causal=False)
+        enc_out = layers.rmsnorm(enc, top["enc_norm"])
+        del enc
+        for block in params.dec_blocks:
+            x = run(block, x, enc_out=enc_out)
+    elif cfg.family == "hybrid":
         for group in params.mamba:
             for block in group:
                 x = run(block, x)
@@ -2578,10 +2608,12 @@ def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
 
 
 def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
-    """``arch`` (the moe, vlm, ssm or hybrid family) at its published width
-    and depth, weights from ``--seed``: SERVE_B prompts of SERVE_PROMPT
-    positions (a vision_stub's first ``frontend_len`` are patch
-    embeddings), SERVE_GEN greedy tokens each, the logits calibrated by a
+    """``arch`` (the moe, vlm, ssm, hybrid or audio family) at its published
+    width and depth, weights from ``--seed``: SERVE_B prompts of
+    SERVE_PROMPT positions (a vision_stub's first ``frontend_len`` are
+    patch embeddings; an encoder-decoder's encoder reads SERVE_PROMPT //
+    ``enc_seq_divisor`` N(0, 1) frames a prompt, whole for every prefix),
+    SERVE_GEN greedy tokens each, the logits calibrated by a
     fused ``StreamingCalibrator`` whose warm ``scale`` must equal a sort on
     the card bit for bit.  A mamba model also holds its first layer's
     chunked scan against the recurrence (``_scan_check``).  Every launch
@@ -2609,6 +2641,12 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
                            device="cuda", dtype=torch.int32)
     extras = (_vision_extras(cfg, B, S + 1, gen)
               if cfg.modality == "vision_stub" else {})
+    if cfg.is_encdec:
+        # N(0, 1), not the CLI's zeros: zero frames would zero the
+        # encoder's output and every cross K/V, hiding the cross path
+        extras["frames"] = torch.randn(
+            (B, S // cfg.enc_seq_divisor, cfg.d_model), generator=gen,
+            device="cuda")
 
     def batch(n: int) -> dict:
         out = {"tokens": tokens[:, :n]}
@@ -2639,6 +2677,17 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
     n_params = sum(w.numel() for w in params.parameters())
     weight_bytes = sum(w.numel() * w.element_size()
                        for w in params.parameters())
+    # what a decode step reads of the weights: an encoder-decoder's decoder
+    # reads neither the encoder nor the cross K/V projections (prefill
+    # filled the cross cache with their products)
+    unread = []
+    if cfg.is_encdec:
+        unread = [params.p["enc_norm"], *(w for b in params.enc_blocks
+                                          for w in b.parameters())]
+        unread += [b.p[name] for b in params.dec_blocks
+                   for name in ("wk_c", "wv_c")]
+    decode_weight_bytes = weight_bytes - sum(w.numel() * w.element_size()
+                                             for w in unread)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in pytree.leaves(cache))
     # a decode step rewrites the whole recurrent state (ssm and conv)
@@ -2712,9 +2761,11 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
     decode_s = (gen_s - prefill_s) / (G - 1)
     return {
         "arch": arch, "family": cfg.family, "params": n_params,
+        "param_count_formula": cfg.param_count(),
         "active_params_per_token": cfg.active_param_count(),
         "weight_bytes": weight_bytes, "batch": B, "prompt_len": S,
         "patch_positions": cfg.frontend_len if extras else 0,
+        "frames": extras["frames"].shape[1] if cfg.is_encdec else 0,
         "gen_len": G, "cache_len": S + G, "kv_cache_bytes": cache_bytes,
         "recurrent_state_bytes": state_bytes,
         "init_s": init_s, "consistency_rel_err": consistency,
@@ -2723,7 +2774,8 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         "prefill_bound_s": _prefill_bound_s(cfg, B, S, S + G),
         "generate_median_s": gen_s, "generate_runs_s": runs,
         "decode_s_per_step": decode_s,
-        "decode_bound_s_per_step": (weight_bytes + cache_bytes
+        "decode_weight_bytes": decode_weight_bytes,
+        "decode_bound_s_per_step": (decode_weight_bytes + cache_bytes
                                     + state_bytes) / roofline.HBM_BW,
         "decode_busy_share": profile.get("device_busy_share"),
         "tokens_per_s": B * G / gen_s,

@@ -13,12 +13,12 @@ kernels  the Hopper kernels, their plain PyTorch versions, the device
          points
 launch   the streaming ``QuantileService``, its ``IngestPool`` and the
          ``StreamingCalibrator``; ``launch.serve``: prefill + decode of a
-         dense, vlm, moe, ssm or hybrid model with exact int8
+         model of any family with exact int8
          calibration;
          ``launch.train``: the training loop (``launch.steps`` builds its
          step)
 models   the layers, routed experts, the Mamba-2 (SSD) block and the
-         assembly of the dense, vlm, moe, ssm and hybrid families, with
+         assembly of every family (dense, vlm, moe, ssm, hybrid, audio), with
          their training loss; ``configs`` the registry
 optim    AdamW, and exact quantiles over pytrees and channels (the
          gradient clip, int8 compression, per-channel scales)

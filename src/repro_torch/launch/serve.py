@@ -2,8 +2,7 @@
 and exact-quantile int8 activation calibration (the paper's primitive
 applied to quantized serving).
 
-Counterpart of ``repro/launch/serve.py``, for the dense, vlm, moe, ssm
-and hybrid families.
+Counterpart of ``repro/launch/serve.py``, for every model family.
 Calibration comes in two shapes:
 
   * one-shot: ``calibrate_int8_scale`` / ``calibrate_int8_scales`` run a
@@ -23,6 +22,8 @@ Usage:
       --device cpu --calibrate          # qwen2-vl-2b: zero patch embeds
   python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced \\
       --device cpu --calibrate          # or zamba2-2.7b
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --reduced --device cpu            # zero frames, prompt_len // 4
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ def generate(cfg: ModelConfig, params: model.Transformer,
              calibrator: Optional[StreamingCalibrator] = None) -> torch.Tensor:
     """Batched prefill + autoregressive decode of ``gen_len`` tokens:
     (B, gen_len) int32 on the model's device.  ``extras`` join the
-    prefill's batch (a vision_stub's ``patch_embeds``, ``positions3``).
+    prefill's batch (a vision_stub's ``patch_embeds``, ``positions3``, an
+    encoder-decoder's ``frames``).
 
     ``calibrator`` observes the logits of the prefill and of every decode
     step through ``observe_many``: one ingest tick per step (a queue
@@ -142,6 +144,10 @@ def main(argv=None) -> None:
     if cfg.modality == "vision_stub":
         extras["patch_embeds"] = torch.zeros(
             (args.batch, cfg.frontend_len, cfg.d_model), device=device)
+    if cfg.is_encdec:
+        extras["frames"] = torch.zeros(
+            (args.batch, max(1, args.prompt_len // cfg.enc_seq_divisor),
+             cfg.d_model), device=device)
     calibrator = (StreamingCalibrator(q=0.999, device=device,
                                       ingest_threads=args.ingest_threads)
                   if args.calibrate else None)

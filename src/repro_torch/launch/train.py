@@ -1,10 +1,10 @@
 """Training loop of the port: data pipeline -> train step -> checkpoint
 and restore, preemption handling, straggler monitoring, exact resume.
 
-Counterpart of ``repro/launch/train.py``, for every family the port's
-models build (dense, vlm, moe, ssm, hybrid).  A checkpoint holds ``(params,
-AdamWState)`` in the JAX package's layout and leaf order, so a run of
-either package resumes from the other's checkpoint.
+Counterpart of ``repro/launch/train.py``, for every model family.  A
+checkpoint holds ``(params, AdamWState)`` in the JAX package's layout and
+leaf order, so a run of either package resumes from the other's
+checkpoint.
 
 Usage:
   python -m repro_torch.launch.train --arch stablelm-1.6b --steps 50 \\

@@ -210,7 +210,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _blockify(q, k, v, pos_q, pos_k, q_block: int, kv_block: int):
     """q, k and v in f32, queries padded to whole q blocks at position -1,
-    keys and values to whole kv blocks at position 2^30."""
+    keys and values to whole kv blocks at position 2^30
+    (``_block_bias`` masks those keys)."""
     Sq, Sk = q.shape[1], k.shape[1]
     nq, nk = -(-Sq // q_block), -(-Sk // kv_block)
     qp = F.pad(q.float(), (0, 0, 0, 0, 0, nq * q_block - Sq))
@@ -219,6 +220,23 @@ def _blockify(q, k, v, pos_q, pos_k, q_block: int, kv_block: int):
     pq = F.pad(pos_q, (0, nq * q_block - Sq), value=-1)
     pk = F.pad(pos_k, (0, nk * kv_block - Sk), value=UNWRITTEN)
     return qp, kp, vp, pq, pk, nq, nk
+
+
+def _block_bias(pq, pk, Sk: int, j: int, kv_block: int, causal: bool,
+                window: int) -> torch.Tensor:
+    """The mask bias of kv block ``j`` for the padded positions ``pq``
+    (B, q_block) and ``pk`` (B, kv_block): ``_mask_bias``, with the keys
+    past the Sk real ones (the padding) masked too.  The causal mask drops
+    them through their position 2^30 already; a non-causal one would not,
+    and zero keys would take softmax weight.  (The reference's
+    ``_flash_fwd_impl`` and ``_flash_bwd`` do not mask them: its
+    non-causal blockwise attention differs from its direct path whenever
+    Sk is not a multiple of ``kv_block``.)"""
+    bias = _mask_bias(pq, pk, None, causal, window)
+    real = Sk - j * kv_block
+    if real < kv_block:
+        bias[..., real:] = NEG_INF
+    return bias
 
 
 def _flash_fwd_impl(q, k, v, pos_q, pos_k, causal: bool, window: int,
@@ -245,8 +263,8 @@ def _flash_fwd_impl(q, k, v, pos_q, pos_k, causal: bool, window: int,
         for j in range(nk):
             ks = slice(j * kv_block, (j + 1) * kv_block)
             s = torch.einsum("bqhd,bthd->bhqt", qb, kp[:, ks])
-            s = s + _mask_bias(pq[:, qs], pk[:, ks], None, causal,
-                               window)[:, None]
+            s = s + _block_bias(pq[:, qs], pk[:, ks], k.shape[1], j,
+                                kv_block, causal, window)[:, None]
             m2 = torch.maximum(m, s.amax(-1))
             corr = torch.exp(m - m2)
             p = torch.exp(s - m2[..., None])
@@ -284,7 +302,8 @@ def _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout, causal: bool,
         qs = slice(i * q_block, (i + 1) * q_block)
         ks = slice(j * kv_block, (j + 1) * kv_block)
         p = torch.einsum("bqhd,bthd->bhqt", qp[:, qs] * scale, kp[:, ks])
-        p += _mask_bias(pq[:, qs], pk[:, ks], None, causal, window)[:, None]
+        p += _block_bias(pq[:, qs], pk[:, ks], Sk, j, kv_block, causal,
+                         window)[:, None]
         p.sub_(lse[:, :, qs, None]).exp_()
         ds = torch.einsum("bqhd,bthd->bhqt", do[:, qs], vp[:, ks])
         ds.sub_(D[:, :, qs, None]).mul_(p)
@@ -359,10 +378,11 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                cache: Optional[dict] = None,
                kv_len: Optional[torch.Tensor] = None,
                angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               bias: Optional[torch.Tensor] = None
+               bias: Optional[torch.Tensor] = None, causal: bool = True,
+               xkv: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention sub-block.  With ``cache`` ({"k", "v": (B, S_cache,
-    KV, dh), "pos": (B, S_cache) int32}), writes this call's K/V and their
+    """Attention sub-block.  With ``cache`` ({"k", "v": (B, S_cache, KV,
+    dh), "pos": (B, S_cache) int32}), writes this call's K/V and their
     absolute positions at slot ``kv_len[0]`` (the whole batch's, clamped so
     that the write fits, as ``dynamic_update_slice`` clamps; slot 0 when
     ``kv_len`` is None) **in place**, then attends over the whole cache.
@@ -374,18 +394,27 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     cache after this call's write) may come precomputed, as a decode step
     passes them to every layer.  An M-RoPE config with ``positions3``
     (3, B, S) rotates by ``mrope_angles``; the mask still reads
-    ``positions``."""
+    ``positions``.
+
+    ``xkv`` (B, Sk, D) makes it a cross-attention: K/V are ``xkv @ wk`` and
+    ``xkv @ wv``, nothing is rotated, and the keys sit at positions
+    0..Sk-1 (the encoder-decoder passes ``causal=False``)."""
     B, S, D = x.shape
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    src = x if xkv is None else xkv
+    Sk = src.shape[1]
     q = (x @ p["wq"]).reshape(B, S, NH, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
-    if angles is None and cfg.mrope and positions3 is not None:
-        angles = mrope_angles(positions3, dh, cfg.rope_theta,
-                              cfg.mrope_sections)
-    angles = angles or rope_angles(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, positions, cfg.rope_theta, angles=angles)
-    k = apply_rope(k, positions, cfg.rope_theta, angles=angles)
+    k = (src @ p["wk"]).reshape(B, Sk, KV, dh)
+    v = (src @ p["wv"]).reshape(B, Sk, KV, dh)
+    if xkv is None:
+        if angles is None and cfg.mrope and positions3 is not None:
+            angles = mrope_angles(positions3, dh, cfg.rope_theta,
+                                  cfg.mrope_sections)
+        angles = angles or rope_angles(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, angles=angles)
+        k = apply_rope(k, positions, cfg.rope_theta, angles=angles)
+    kw = dict(causal=causal, window=cfg.swa_window, q_block=cfg.attn_q_block,
+              kv_block=cfg.attn_kv_block)
 
     if cache is not None:
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
@@ -408,14 +437,12 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             ck.index_copy_(1, idx, k_w.to(ck.dtype))
             cv.index_copy_(1, idx, v_w.to(cv.dtype))
             cpos.index_copy_(1, idx, p_w.to(torch.int32))
-        out = attention(q, ck, cv, positions, cpos, window=cfg.swa_window,
-                        q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
-                        bias=bias)
+        out = attention(q, ck, cv, positions, cpos, bias=bias, **kw)
         new_cache = cache
     else:
-        out = attention(q, k, v, positions, positions,
-                        window=cfg.swa_window, q_block=cfg.attn_q_block,
-                        kv_block=cfg.attn_kv_block)
+        pos_k = positions if xkv is None else torch.arange(
+            Sk, dtype=torch.int32, device=x.device).expand(B, Sk)
+        out = attention(q, k, v, positions, pos_k, **kw)
         new_cache = None
     return out.reshape(B, S, NH * dh) @ p["wo"], new_cache
 

@@ -1,18 +1,19 @@
 """Model assembly, in PyTorch: parameter init, the weights of a JAX
 checkpoint and back, the training loss, prefill and decode with a cache,
-for the dense, vlm, moe, ssm and hybrid families.
+for every family of ``repro/models/model.py``: dense, vlm, moe, ssm,
+hybrid and the encoder-decoder (audio).
 
-Counterpart of those branches of ``repro/models/model.py``.
-Conventions, as the reference's:
+Counterpart of ``repro/models/model.py``.  Conventions, as the
+reference's:
 
   * weights by the JAX names: ``Transformer.p`` holds ``embed``,
-    ``final_norm`` (``final_norm_b``), ``head`` and, for a vision_stub
-    config, ``patch_proj``; each ``DenseBlock.p`` one layer's slice of
-    ``params["blocks"]`` (``ln1``, ``wq``, ``wk``, ``wv``, ``wo``, ``ln2``,
-    ``w_gate``/``w_up`` or ``w_in``, ``w_down``, with ``ln*_b`` for
-    LayerNorm configs; a moe layer holds ``router`` and the experts'
-    ``we_gate``, ``we_up``, ``we_down`` instead of the MLP, and keeps the
-    MLP as Arctic's dense residual);
+    ``final_norm`` (``final_norm_b``), ``head``, for a vision_stub config
+    ``patch_proj`` and for an encoder-decoder ``enc_norm``; each
+    ``DenseBlock.p`` one layer's slice of ``params["blocks"]`` (``ln1``,
+    ``wq``, ``wk``, ``wv``, ``wo``, ``ln2``, ``w_gate``/``w_up`` or
+    ``w_in``, ``w_down``, with ``ln*_b`` for LayerNorm configs; a moe layer
+    holds ``router`` and the experts' ``we_gate``, ``we_up``, ``we_down``
+    instead of the MLP, and keeps the MLP as Arctic's dense residual);
   * an ssm model (mamba2) is ``n_layers`` ``MambaBlock``s, each ``p`` one
     layer of the reference's ``params["blocks"]`` (``norm``, ``in_proj``,
     ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``out_norm``,
@@ -21,6 +22,12 @@ Conventions, as the reference's:
     ``MambaBlock``s, each group followed by one ``DenseBlock`` whose
     weights all groups share (``Transformer.shared``, the reference's
     ``params["shared"]``);
+  * an encoder-decoder (seamless) is ``enc_layers`` ``DenseBlock``s
+    (``Transformer.enc_blocks``: non-causal self-attention over the
+    batch's ``frames`` (B, Sf, D), then rmsnorm by ``enc_norm``) and
+    ``n_layers`` decoder ``DenseBlock``s (``dec_blocks``) that also hold
+    the cross-attention's ``ln_c`` (``ln_c_b``), ``wq_c``, ``wk_c``,
+    ``wv_c`` and ``wo_c``;
   * a vision_stub batch may carry ``patch_embeds`` (B, F, D), projected by
     ``patch_proj`` in place of the first F token embeddings, and an M-RoPE
     config rotates by ``positions3`` (3, B, S), the batch's or the
@@ -31,19 +38,22 @@ Conventions, as the reference's:
     keeps a ring of ``min(cache_len, swa_window)`` slots; an ssm cache is
     {"ssm": (L, B, H, hd, N) f32, "conv": (L, B, K - 1, d_inner + 2N)}; a
     hybrid's is {"mamba": that cache at (G, every, ...), "shared": the
-    attention cache of G layers}.  Prefill returns it, and decode writes
-    it in place and returns it;
+    attention cache of G layers}; an encoder-decoder's {"self": the
+    attention cache, "cross": {"k", "v": (L, B, Sf, KV, dh)}}, the cross
+    K/V of the encoder's output, filled once by prefill.  Prefill returns
+    it, and decode writes it in place and returns it;
   * the losses ignore label -1, and the cross-entropy runs in sequence
     chunks of ``CE_CHUNK``;
   * a parameter tree (``param_tree``) is a dict of the top weights with
     ``"blocks"`` a list of one dict a layer (a hybrid's ``"mamba"`` a list
-    of G lists of ``every`` dicts, and ``"shared"`` one dict); ``stacked``
+    of G lists of ``every`` dicts, and ``"shared"`` one dict; an
+    encoder-decoder's ``"enc_blocks"`` and ``"dec_blocks"``); ``stacked``
     turns such a tree (of weights, gradients or optimizer moments) into the
-    JAX package's layout, ``"blocks"`` a dict of (L, ...) leaves
+    JAX package's layout, each list of layers a dict of (L, ...) leaves
     (``"mamba"`` of (G, every, ...) leaves), and ``unstacked`` back.
 
-The audio family is not ported yet: building or running it raises
-``NotImplementedError``.
+A family the reference does not name builds a dense model, as the
+reference's ``init_params`` does.
 """
 from __future__ import annotations
 
@@ -62,27 +72,14 @@ from ..pytree import leaves, paths, tree_map
 
 CE_CHUNK = 256
 
-_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "audio": "ROADMAP.md Queue 1 item 6: the audio family (encoder-decoder "
-             "with cross-attention)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED:
-        where = _NOT_PORTED.get(cfg.family, "ROADMAP.md Queue 1 item 6")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet ({where}); the {', '.join(_PORTED)} families are")
-
-
 def _pdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
-    """One layer's weights: name -> (shape, in param dtype)."""
+def _block_shapes(cfg: ModelConfig, cross: bool = False
+                  ) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """One layer's weights: name -> (shape, in param dtype); ``cross`` adds
+    a decoder layer's cross-attention (the ``_c`` leaves)."""
     D, NH, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                         cfg.d_ff)
     shapes = {"ln1": ((D,), False), "wq": ((D, NH * dh), True),
@@ -90,6 +87,12 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
               "wo": ((NH * dh, D), True), "ln2": ((D,), False)}
     if cfg.use_layernorm:
         shapes.update(ln1_b=((D,), False), ln2_b=((D,), False))
+    if cross:
+        shapes.update(ln_c=((D,), False), wq_c=((D, NH * dh), True),
+                      wk_c=((D, KV * dh), True), wv_c=((D, KV * dh), True),
+                      wo_c=((NH * dh, D), True))
+        if cfg.use_layernorm:
+            shapes["ln_c_b"] = ((D,), False)
     if cfg.family == "moe":
         E = cfg.moe_experts
         shapes.update(router=((D, E), False), we_gate=((E, D, F), True),
@@ -124,6 +127,8 @@ def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
         shapes["final_norm_b"] = ((D,), False)
     if cfg.modality == "vision_stub":
         shapes["patch_proj"] = ((D, D), True)
+    if cfg.is_encdec:
+        shapes["enc_norm"] = ((D,), False)
     return shapes
 
 
@@ -140,18 +145,28 @@ def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
              positions3: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None,
              kv_len: Optional[torch.Tensor] = None, angles=None,
-             bias=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``_dense_block_fn`` of the reference (no cross-attention): pre-norm
-    attention, then a pre-norm MLP, or the routed experts (plus the MLP for
-    Arctic's dense residual), each added to the residual stream.  Returns
-    (x, the moe layer's load-balance loss, else None).  ``cache`` is this
-    layer's and is written in place; ``positions3``, ``angles`` and
-    ``bias`` as ``layers.attn_block`` takes them."""
+             bias=None, causal: bool = True,
+             enc_out: Optional[torch.Tensor] = None,
+             cross: Optional[dict] = None,
+             cross_bias: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``_dense_block_fn`` of the reference: pre-norm attention (causal
+    unless ``causal=False``, as the encoder runs it); for a decoder layer
+    with the cross leaves, pre-norm cross-attention (``_cross_attention``);
+    then a pre-norm MLP, or the routed experts (plus the MLP for Arctic's
+    dense residual), each added to the residual stream.  Returns (x, the
+    moe layer's load-balance loss, else None).  ``cache`` is this layer's
+    and is written in place; ``positions3``, ``angles`` and ``bias`` as
+    ``layers.attn_block`` takes them; ``enc_out``, ``cross`` and
+    ``cross_bias`` as ``_cross_attention`` takes them."""
     h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
                              positions=positions, positions3=positions3,
                              cache=cache, kv_len=kv_len, angles=angles,
-                             bias=bias)
+                             bias=bias, causal=causal)
     x = x + h
+    if "wq_c" in p:
+        x = x + _cross_attention(p, x, cfg, positions, enc_out, cross,
+                                 cross_bias)
     xn = layers.norm(x, p, cfg, "ln2")
     if cfg.family != "moe":
         return x + layers.mlp_block(p, xn, cfg), None
@@ -161,16 +176,46 @@ def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     return x + y, aux
 
 
+def _cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                     cfg: ModelConfig, positions: torch.Tensor,
+                     enc_out: Optional[torch.Tensor], cross: Optional[dict],
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cross branch of the reference's ``_dense_block_fn``: ``ln_c``,
+    then non-causal attention of ``x @ wq_c`` (no rope) over keys at
+    positions 0..Sf-1, then ``wo_c``.  The K/V are this layer's ``cross``
+    cache ({"k", "v": (B, Sf, KV, dh)}, which prefill fills once) where it
+    is given, else ``enc_out @ wk_c`` and ``enc_out @ wv_c``.  ``bias``
+    may come precomputed for the cache (all zeros: every frame is
+    attendable), as a decode step passes it to every layer."""
+    cp = {name[:-2]: w for name, w in p.items() if name.endswith("_c")}
+    xn = layers.norm(x, p, cfg, "ln_c")
+    if cross is None:
+        if enc_out is None:
+            raise ValueError("a decoder layer needs the encoder's output or "
+                             "its cross cache")
+        return layers.attn_block(cp, xn, cfg, positions=positions,
+                                 causal=False, xkv=enc_out)[0]
+    B, S, _ = x.shape
+    NH, dh = cfg.n_heads, cfg.d_head
+    q = (xn @ cp["wq"]).reshape(B, S, NH, dh)
+    Sf = cross["k"].shape[1]
+    pos_k = torch.arange(Sf, dtype=torch.int32, device=x.device).expand(B, Sf)
+    o = layers.attention(q, cross["k"], cross["v"], positions, pos_k,
+                         causal=False, q_block=cfg.attn_q_block,
+                         kv_block=cfg.attn_kv_block, bias=bias)
+    return o.reshape(B, S, NH * dh) @ cp["wo"]
+
+
 class DenseBlock(nn.Module):
     """One transformer layer: ``block_fn`` over its weights, under its own
     config or the one a caller passes (``prefill``, ``decode_step`` and
     ``forward_loss`` pass theirs, as the reference's functions use the
     config they are given)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, cross: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.p = _empty(_block_shapes(cfg), cfg, device)
+        self.p = _empty(_block_shapes(cfg, cross), cfg, device)
 
     def forward(self, x: torch.Tensor, cfg: Optional[ModelConfig] = None,
                 **kw) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -202,10 +247,11 @@ class Transformer(nn.Module):
     ``blocks``: ``n_layers`` ``DenseBlock``s, or ``MambaBlock``s for the
     ssm family; a hybrid has ``mamba``, G groups of ``hybrid_attn_every``
     ``MambaBlock``s, and the one ``shared`` ``DenseBlock`` that runs after
-    each group."""
+    each group; an encoder-decoder has ``enc_blocks`` (``enc_layers``
+    ``DenseBlock``s) and ``dec_blocks`` (``n_layers``, with the
+    cross-attention)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        _require_ported(cfg)
         super().__init__()
         device = require_device(device)
         self.cfg = cfg
@@ -216,6 +262,11 @@ class Transformer(nn.Module):
                 nn.ModuleList(MambaBlock(cfg, device) for _ in range(every))
                 for _ in range(cfg.n_layers // every))
             self.shared = DenseBlock(cfg, device)
+        elif cfg.is_encdec:
+            self.enc_blocks = nn.ModuleList(DenseBlock(cfg, device)
+                                            for _ in range(cfg.enc_layers))
+            self.dec_blocks = nn.ModuleList(DenseBlock(cfg, device, True)
+                                            for _ in range(cfg.n_layers))
         else:
             block = MambaBlock if cfg.family == "ssm" else DenseBlock
             self.blocks = nn.ModuleList(block(cfg, device)
@@ -236,9 +287,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions and scales, from a
     ``torch.Generator`` on ``device`` seeded with ``seed``, one layer at a
-    time: matmul weights and the router normal x 0.02 (``wo``, ``w_down``
-    and ``we_down`` x 0.02 / sqrt(2 layers)), norms 1, biases 0; a mamba
-    layer's ``in_proj`` normal x 0.02, ``out_proj`` x 0.02 / sqrt(2
+    time: matmul weights and the router normal x 0.02 (``wo``, ``wo_c``,
+    ``w_down`` and ``we_down`` x 0.02 / sqrt(2 layers), the encoder's
+    counted), norms (``enc_norm`` too) 1, biases 0; a mamba layer's
+    ``in_proj`` normal x 0.02, ``out_proj`` x 0.02 / sqrt(2
     n_layers), ``conv_w`` x 0.1 (rounded to the param dtype, kept in f32),
     ``conv_b`` and ``A_log`` 0, ``D`` 1, ``dt_bias`` -2.  The values are
     not JAX's (``params_from_numpy`` carries those over)."""
@@ -256,10 +308,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
     def fill(pdict: nn.ParameterDict) -> None:
         for name, w in pdict.items():
-            if name.startswith(("ln", "final_norm")):
+            if name.startswith(("ln", "final_norm", "enc_norm")):
                 w.fill_(0.0 if name.endswith("_b") else 1.0)
                 continue
-            scale = so if name in ("wo", "w_down", "we_down") else 0.02
+            scale = so if name in ("wo", "wo_c", "w_down", "we_down") else 0.02
             w.copy_(normal(w, scale))
 
     def fill_mamba(pdict: nn.ParameterDict) -> None:
@@ -280,6 +332,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 def _dense_blocks(params: Transformer):
     if params.cfg.family == "hybrid":
         return [params.shared]
+    if params.cfg.is_encdec:
+        return list(params.enc_blocks) + list(params.dec_blocks)
     return [] if params.cfg.family == "ssm" else list(params.blocks)
 
 
@@ -289,13 +343,19 @@ def _mamba_blocks(params: Transformer):
     return list(params.blocks) if params.cfg.family == "ssm" else []
 
 
+# the tree's lists of layers (one dict a layer)
+_LAYER_LISTS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 @torch.no_grad()
 def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
-    """Copy a parameter tree in the JAX package's layout (``tree["blocks"]``
-    holds the stacked (L, ...) leaves; a hybrid's ``tree["mamba"]`` the
-    (G, every, ...) leaves and ``tree["shared"]`` one block's) into
-    ``params``, bit for bit.  Leaves are tensors or numpy arrays; bf16
-    numpy leaves may be ml_dtypes arrays or their uint16 bits."""
+    """Copy a parameter tree in the JAX package's layout (``tree["blocks"]``,
+    or an encoder-decoder's ``tree["enc_blocks"]`` and
+    ``tree["dec_blocks"]``, holds the stacked (L, ...) leaves; a hybrid's
+    ``tree["mamba"]`` the (G, every, ...) leaves and ``tree["shared"]`` one
+    block's) into ``params``, bit for bit.  Leaves are tensors or numpy
+    arrays; bf16 numpy leaves may be ml_dtypes arrays or their uint16
+    bits."""
     def load(dst: torch.Tensor, a) -> None:
         if isinstance(a, np.ndarray) and a.dtype == np.uint16:
             t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -321,10 +381,9 @@ def load_params(params: Transformer, tree: Mapping[str, Any]) -> Transformer:
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                       device="cuda") -> Transformer:
-    """The JAX parameter pytree of ``repro.models.model.init_params``
-    (dense, vlm, moe, ssm or hybrid family), given as numpy arrays, as a
-    ``Transformer`` on ``device``, bit for bit.  bf16 leaves may be
-    ml_dtypes arrays or their uint16 bits."""
+    """The JAX parameter pytree of ``repro.models.model.init_params`` (any
+    family), given as numpy arrays, as a ``Transformer`` on ``device``, bit
+    for bit.  bf16 leaves may be ml_dtypes arrays or their uint16 bits."""
     return load_params(Transformer(cfg, device), tree)
 
 
@@ -332,12 +391,16 @@ def param_tree(params: Transformer) -> Dict[str, Any]:
     """The model's parameters as a tree: the top weights by name and
     ``"blocks"``, a list of one dict a layer (a hybrid: ``"mamba"``, a
     list of one list a group of one dict a layer, and ``"shared"``, one
-    dict).  The leaves are the model's own ``nn.Parameter``s."""
+    dict; an encoder-decoder: ``"enc_blocks"`` and ``"dec_blocks"``).  The
+    leaves are the model's own ``nn.Parameter``s."""
     tree: Dict[str, Any] = dict(params.p.items())
     if params.cfg.family == "hybrid":
         tree["mamba"] = [[dict(block.p.items()) for block in group]
                          for group in params.mamba]
         tree["shared"] = dict(params.shared.p.items())
+    elif params.cfg.is_encdec:
+        tree["enc_blocks"] = [dict(b.p.items()) for b in params.enc_blocks]
+        tree["dec_blocks"] = [dict(b.p.items()) for b in params.dec_blocks]
     else:
         tree["blocks"] = [dict(block.p.items()) for block in params.blocks]
     return tree
@@ -345,9 +408,10 @@ def param_tree(params: Transformer) -> Dict[str, Any]:
 
 def stacked(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
     """A tree shaped as ``param_tree`` (weights, gradients or moments) in
-    the JAX package's layout: ``"blocks"`` a dict of (L, ...) leaves, a
-    hybrid's ``"mamba"`` of (G, every, ...) leaves.  The leaves are
-    detached copies, on ``device`` if given (else where they are)."""
+    the JAX package's layout: ``"blocks"`` (``"enc_blocks"``,
+    ``"dec_blocks"``) a dict of (L, ...) leaves, a hybrid's ``"mamba"`` of
+    (G, every, ...) leaves.  The leaves are detached copies, on ``device``
+    if given (else where they are)."""
     def to(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
         return t.detach().to(t.device if device is None else device,
                              copy=copy)
@@ -362,7 +426,7 @@ def stacked(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
 
     out = {}
     for name, t in tree.items():
-        if name in ("blocks", "mamba"):
+        if name in _LAYER_LISTS or name == "mamba":
             out[name] = stack(t)
         elif name == "shared":
             out[name] = {k: to(v, copy=True) for k, v in t.items()}
@@ -372,12 +436,12 @@ def stacked(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
 
 
 def unstacked(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """The inverse of ``stacked``: ``"blocks"`` as a list of one dict a
-    layer (``"mamba"`` a list of G lists), whose leaves are views of the
-    stacked ones."""
+    """The inverse of ``stacked``: ``"blocks"`` (``"enc_blocks"``,
+    ``"dec_blocks"``) as a list of one dict a layer (``"mamba"`` a list of
+    G lists), whose leaves are views of the stacked ones."""
     out = {}
     for name, t in tree.items():
-        if name == "blocks":
+        if name in _LAYER_LISTS:
             L = len(next(iter(t.values())))
             out[name] = [{k: v[i] for k, v in t.items()} for i in range(L)]
         elif name == "mamba":
@@ -439,14 +503,38 @@ def _remat(block: nn.Module, cfg: ModelConfig):
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
+def _run_encoder(params: Transformer, frames: torch.Tensor,
+                 cfg: ModelConfig, remat: bool) -> torch.Tensor:
+    """The encoder over ``frames`` (B, Sf, D), cast to the param dtype: each
+    of ``enc_blocks`` with non-causal, rotated self-attention over
+    positions 0..Sf-1 (under the config's remat policy where ``remat``),
+    then rmsnorm by ``enc_norm`` (rmsnorm for a LayerNorm config too, as
+    the reference's ``_run_encoder``)."""
+    B, Sf, _ = frames.shape
+    x = frames.to(_pdt(cfg))
+    positions = torch.arange(Sf, dtype=torch.int32,
+                             device=x.device).expand(B, Sf)
+    for block in params.enc_blocks:
+        run = _remat(block, cfg) if remat else block
+        x, _ = run(x, cfg, positions=positions, causal=False)
+    return layers.rmsnorm(x, params.p["enc_norm"])
+
+
 def _run_decoder_train(params: Transformer, x: torch.Tensor,
                        cfg: ModelConfig, positions: torch.Tensor,
-                       positions3: Optional[torch.Tensor] = None):
+                       positions3: Optional[torch.Tensor] = None,
+                       enc_out: Optional[torch.Tensor] = None):
     """Every block in turn under the config's remat policy (a hybrid's
-    shared block after each group, its gradient summed over the groups);
+    shared block after each group, its gradient summed over the groups; an
+    encoder-decoder's ``dec_blocks``, each attending over ``enc_out``);
     returns the residual stream and the sum of the layers' load-balance
     losses (0 outside the moe family)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_encdec:
+        for block in params.dec_blocks:
+            x, _ = _remat(block, cfg)(x, cfg, positions=positions,
+                                      enc_out=enc_out)
+        return x, aux
     if cfg.family == "ssm":
         for block in params.blocks:
             x = _remat(block, cfg)(x, cfg)
@@ -497,13 +585,15 @@ def forward_loss(params: Transformer, batch: Mapping[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """Training forward: the mean cross-entropy of ``batch["labels"]``
     (-1 ignored) after ``batch["tokens"]`` (and a vision_stub's
-    ``patch_embeds``, a batch's ``positions3``), plus 0.01 x the mean
-    layer's load-balance loss for the moe family; and {"ce", "aux",
-    "tokens"}.  Differentiable in the model's parameters where they require
-    grad."""
-    _require_ported(cfg)
+    ``patch_embeds``, a batch's ``positions3``, an encoder-decoder's
+    ``frames``), plus 0.01 x the mean layer's load-balance loss for the moe
+    family; and {"ce", "aux", "tokens"}.  Differentiable in the model's
+    parameters where they require grad."""
+    enc_out = (_run_encoder(params, batch["frames"], cfg, remat=True)
+               if cfg.is_encdec else None)
     x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
-    x, aux = _run_decoder_train(params, x, cfg, positions, positions3)
+    x, aux = _run_decoder_train(params, x, cfg, positions, positions3,
+                                enc_out)
     x = layers.norm(x, params.p, cfg, "final_norm")
     loss, n_tok = chunked_ce_loss(x, params.p["head"], batch["labels"])
     total = loss
@@ -537,15 +627,15 @@ def _ssm_cache(lead: Tuple[int, ...], B: int, cfg: ModelConfig, dt,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
-               dtype=None, device="cuda") -> Dict:
+               enc_len: int = 0, dtype=None, device="cuda") -> Dict:
     """Zeroed K/V (L, B, W, KV, dh) in the param dtype (or ``dtype``) and
     positions (L, B, W) at the "unwritten" sentinel 2^30, where W is
     ``cache_len``, or ``min(cache_len, swa_window)`` for a sliding-window
     config (a ring).  An ssm config: zeroed {"ssm": (L, B, H, hd, N) f32,
     "conv": (L, B, K - 1, d_inner + 2N)}; a hybrid: {"mamba": those at (G,
     every, ...), "shared": K/V and positions of G layers over
-    ``cache_len``}."""
-    _require_ported(cfg)
+    ``cache_len``}; an encoder-decoder: {"self": that attention cache,
+    "cross": zeroed K/V (L, B, ``enc_len``, KV, dh)}."""
     device = require_device(device)
     dt = dtype or _pdt(cfg)
     B = batch_size
@@ -557,6 +647,11 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
         return {"mamba": _ssm_cache((G, every), B, cfg, dt, device),
                 "shared": _attn_cache(G, B, cache_len, cfg, dt, device)}
     W = min(cache_len, cfg.swa_window) if cfg.swa_window else cache_len
+    if cfg.is_encdec:
+        cross = _attn_cache(cfg.n_layers, B, enc_len, cfg, dt, device)
+        del cross["pos"]
+        return {"self": _attn_cache(cfg.n_layers, B, W, cfg, dt, device),
+                "cross": cross}
     return _attn_cache(cfg.n_layers, B, W, cfg, dt, device)
 
 
@@ -610,14 +705,18 @@ def _stack_states(states: list) -> Dict[str, torch.Tensor]:
 def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig, cache_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt ``batch["tokens"]`` (B, S) (with a vision_stub
-    config's ``patch_embeds`` and an M-RoPE config's ``positions3``, where
-    given): the last position's logits (B, V) f32 and the filled cache.
-    ``cache_len`` sizes the attention cache (at least S; serving passes
-    prompt + new tokens); an ssm cache takes the scan's final states and
-    ignores it, as the reference's does."""
-    _require_ported(cfg)
+    config's ``patch_embeds``, an M-RoPE config's ``positions3`` where
+    given, and an encoder-decoder's ``frames`` (B, Sf, D)): the last
+    position's logits (B, V) f32 and the filled cache.  ``cache_len`` sizes
+    the attention cache (at least S; serving passes prompt + new tokens);
+    an ssm cache takes the scan's final states and ignores it, as the
+    reference's does.  An encoder-decoder runs the encoder once, and each
+    decoder layer fills its cross cache with ``enc_out @ wk_c`` and
+    ``enc_out @ wv_c`` (in the cache's dtype), then attends over it."""
     B, S = batch["tokens"].shape
     cache_len = max(cache_len, S)
+    if cfg.is_encdec:
+        return _prefill_encdec(params, batch, cfg, cache_len)
     x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
     if cfg.family == "ssm":
         states = []
@@ -643,6 +742,22 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
     for i, block in enumerate(params.blocks):
         x, _ = block(x, cfg, positions=positions, positions3=positions3,
                      cache=_layer_cache(cache, i))
+    return _logits(params, x[:, -1:], cfg), cache
+
+
+def _prefill_encdec(params: Transformer, batch: Mapping[str, torch.Tensor],
+                    cfg: ModelConfig, cache_len: int):
+    enc_out = _run_encoder(params, batch["frames"], cfg, remat=False)
+    x, positions, _ = _embed_inputs(params.p, batch, cfg)
+    B, Sf = enc_out.shape[:2]
+    KV, dh = cfg.n_kv_heads, cfg.d_head
+    cache = init_cache(cfg, B, cache_len, enc_len=Sf, device=params.device)
+    for i, block in enumerate(params.dec_blocks):
+        cross = _layer_cache(cache["cross"], i)
+        cross["k"].copy_((enc_out @ block.p["wk_c"]).reshape(B, Sf, KV, dh))
+        cross["v"].copy_((enc_out @ block.p["wv_c"]).reshape(B, Sf, KV, dh))
+        x, _ = block(x, cfg, positions=positions,
+                     cache=_layer_cache(cache["self"], i), cross=cross)
     return _logits(params, x[:, -1:], cfg), cache
 
 
@@ -676,8 +791,9 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: Dict,
     length (the new token's position).  Writes the token's K/V at slot
     ``cache_len[0]`` (``cache_len % swa_window`` in a ring), and a mamba
     layer's state and conv ring, in place, with no host sync; returns
-    (logits (B, V) f32, the cache)."""
-    _require_ported(cfg)
+    (logits (B, V) f32, the cache).  An encoder-decoder's layers also
+    attend over their cross cache, under one all-zero mask bias made on
+    the device for every layer."""
     B = token.shape[0]
     x = params.p["embed"][token.long()]
     positions = cache_len[:, None].to(torch.int32).expand(B, 1)
@@ -685,9 +801,23 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: Dict,
         for i, block in enumerate(params.blocks):
             x = block(x, cfg, cache=_layer_cache(cache, i))
         return _logits(params, x, cfg), cache
-    attn = cache["shared"] if cfg.family == "hybrid" else cache
+    attn = cache
+    if cfg.family == "hybrid":
+        attn = cache["shared"]
+    elif cfg.is_encdec:
+        attn = cache["self"]
     write_pos, angles, bias = _decode_attention(cfg, attn, cache_len,
                                                 positions)
+    if cfg.is_encdec:
+        cross = cache["cross"]
+        cross_bias = torch.zeros((B, 1, cross["k"].shape[2]),
+                                 dtype=torch.float32, device=x.device)
+        for i, block in enumerate(params.dec_blocks):
+            x, _ = block(x, cfg, positions=positions,
+                         cache=_layer_cache(attn, i), kv_len=write_pos,
+                         angles=angles, bias=bias,
+                         cross=_layer_cache(cross, i), cross_bias=cross_bias)
+        return _logits(params, x, cfg), cache
     if cfg.family == "hybrid":
         for g, group in enumerate(params.mamba):
             for i, block in enumerate(group):

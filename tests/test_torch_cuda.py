@@ -430,12 +430,14 @@ def test_moe_block_on_card_routes_as_the_cpu_and_repeats(arch, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_ssm_decode_on_card_makes_no_host_sync(arch, cuda):
-    """A reduced ssm (and hybrid) model in f32 on the card: ``decode_step``
-    writes its state, conv ring (and K/V) in place with no host sync
-    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and
-    greedy generation gives the CPU port's tokens."""
+    """A reduced ssm (and hybrid, and encoder-decoder) model in f32 on the
+    card: ``decode_step`` writes its state, conv ring (and K/V) in place
+    with no host sync (``torch.cuda.set_sync_debug_mode("error")`` raises
+    on one), the encoder-decoder's cross cache stays as prefill filled it,
+    and greedy generation gives the CPU port's tokens."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -448,16 +450,22 @@ def test_ssm_decode_on_card_makes_no_host_sync(arch, cuda):
     gen = torch.Generator().manual_seed(5)
     prompts = torch.randint(0, cfg.vocab, (2, 12), generator=gen,
                             dtype=torch.int32)
-    _, cache = model.prefill(card, {"tokens": prompts.to(cuda)}, cfg,
-                             cache_len=16)
+    extras = ({"frames": torch.randn((2, 3, cfg.d_model), generator=gen)}
+              if cfg.is_encdec else {})
+    on_card = {name: t.to(cuda) for name, t in extras.items()}
+    _, cache = model.prefill(card, {"tokens": prompts.to(cuda), **on_card},
+                             cfg, cache_len=16)
     token = prompts[:, -1:].to(cuda)
     at = torch.full((2,), 12, dtype=torch.int32, device=cuda)
 
     def watched(c):
-        return ([c["ssm"], c["conv"]] if arch == "mamba2-1.3b"
-                else [c["mamba"]["ssm"], c["shared"]["k"]])
+        return {"mamba2-1.3b": lambda: [c["ssm"], c["conv"]],
+                "zamba2-2.7b": lambda: [c["mamba"]["ssm"], c["shared"]["k"]],
+                "seamless-m4t-large-v2": lambda: [c["self"]["k"],
+                                                  c["self"]["pos"]]}[arch]()
 
     before = [t.clone() for t in watched(cache)]
+    cross = [t.clone() for t in cache.get("cross", {}).values()]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -466,6 +474,9 @@ def test_ssm_decode_on_card_makes_no_host_sync(arch, cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert after is cache and logits.shape == (2, cfg.vocab)
     assert all(not torch.equal(a, b) for a, b in zip(before, watched(cache)))
-    want = serve.generate(cfg, cpu, prompts, gen_len=6)
-    got = serve.generate(cfg, card, prompts.to(cuda), gen_len=6)
+    assert all(torch.equal(a, b)
+               for a, b in zip(cross, cache.get("cross", {}).values()))
+    want = serve.generate(cfg, cpu, prompts, gen_len=6, extras=extras)
+    got = serve.generate(cfg, card, prompts.to(cuda), gen_len=6,
+                         extras=extras)
     assert torch.equal(got.cpu(), want)

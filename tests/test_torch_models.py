@@ -160,9 +160,13 @@ def test_attention_paths_match_jax(window):
         got = TL.attention(*map(_t, (q, k, v, pq, pk)), **kw)
         assert np.isfinite(got.numpy()).all()
         assert _rel(got.numpy(), want) <= 1e-5, (Sq, Sk)
-    # not causal (the encoder's and cross-attention's mask): window only
+    # not causal (the encoder's and cross-attention's mask): window only.
+    # The reference's blockwise path lets the keys that pad Sk = 37 to
+    # whole kv blocks through when it is not causal
+    # (test_torch_flash_padding.py pins it), so the port's blockwise
+    # answer is held to the reference's direct path
     kw["causal"] = False
-    want = JL.attention(q, k, v, pq, pk, **kw)
+    want = JL.attention(q, k, v, pq, pk, **dict(kw, q_block=Sq, kv_block=Sk))
     got = TL.attention(*map(_t, (q, k, v, pq, pk)), **kw)
     assert _rel(got.numpy(), want) <= 1e-5
     with pytest.raises(ValueError):

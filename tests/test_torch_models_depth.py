@@ -1,6 +1,7 @@
 """The bf16 decode gap at granite-8b's depth in both packages, the port's
-``init_params`` and ``params_from_numpy``, and the family not ported yet
-(helpers and tolerances: ``test_torch_models.py``)."""
+``init_params`` and ``params_from_numpy``, and the shapes of the
+encoder-decoder's weights and cache (helpers and tolerances:
+``test_torch_models.py``)."""
 import numpy as np
 import pytest
 
@@ -70,11 +71,29 @@ def test_params_from_numpy_is_bit_exact_and_takes_uint16_bits():
 
 @pytest.mark.parametrize("build", ["Transformer", "init_params",
                                    "init_cache"])
-def test_unported_families_raise(build):
-    """The audio family (seamless-m4t-large-v2) is the one not ported."""
+def test_audio_family_builds_the_reference_shapes(build):
+    """The encoder-decoder (reduced seamless-m4t-large-v2): ``Transformer``
+    and ``init_params`` give the leaves of JAX's ``init_params`` and
+    ``init_cache(enc_len=)`` those of JAX's ``init_cache``, under the same
+    paths, with the same shapes and dtypes (``jax.eval_shape``)."""
+    from repro.configs import get_config as jget_config
+    from repro.models import model as JM
+    from repro_torch import pytree
+
     cfg = get_config("seamless-m4t-large-v2").reduced()
-    call = {"Transformer": lambda: TM.Transformer(cfg, device="cpu"),
-            "init_params": lambda: TM.init_params(cfg, 0, device="cpu"),
-            "init_cache": lambda: TM.init_cache(cfg, 1, 8, device="cpu")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call[build]()
+    jcfg = jget_config("seamless-m4t-large-v2").reduced()
+    if build == "init_cache":
+        got = TM.init_cache(cfg, 2, 8, enc_len=5, device="cpu")
+        want = jax.eval_shape(lambda: JM.init_cache(jcfg, 2, 8, enc_len=5))
+    else:
+        made = (TM.Transformer(cfg, device="cpu") if build == "Transformer"
+                else TM.init_params(cfg, 0, device="cpu"))
+        got = TM.stacked(TM.param_tree(made))
+        want = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                     jax.random.PRNGKey(0)))
+    assert pytree.paths(got) == [jax.tree_util.keystr(k) for k, _ in
+                                 jax.tree_util.tree_leaves_with_path(want)]
+    for path, t, a in zip(pytree.paths(got), pytree.leaves(got),
+                          jax.tree.leaves(want)):
+        assert tuple(t.shape) == a.shape, path
+        assert str(t.dtype).split(".")[-1] == a.dtype.name, path

@@ -195,3 +195,34 @@ def test_roundtrip_retention_and_atomic_writes():
         assert np.array_equal(np.asarray(jrestored["d"]), np.arange(4.0))
     with pytest.raises(FileNotFoundError):
         TC.restore_checkpoint(d, tree, device="cpu")
+
+
+def test_jax_restores_a_port_encdec_checkpoint_bit_for_bit(tmp_path):
+    """The port's training checkpoint of reduced seamless-m4t-large-v2
+    after 2 steps (its batches carry the frames), restored by JAX's
+    ``restore_checkpoint`` into JAX's (params, AdamWState) template: every
+    leaf, the encoder's, ``enc_norm`` and the cross leaves included, the
+    port's state, bit for bit, under JAX's paths."""
+    arch = "seamless-m4t-large-v2"
+    out = train_loop(get_config(arch).reduced(), steps=2, global_batch=2,
+                     seq_len=16, ckpt_dir=str(tmp_path), ckpt_every=100,
+                     device="cpu", log_every=0)
+    jparams = JM.init_params(jget_config(arch).reduced(),
+                             jax.random.PRNGKey(0))
+    template = (jparams, jadamw_init(jparams))
+    (jp, jopt), extra = JC.restore_checkpoint(str(tmp_path), template)
+    assert extra["data_step"] == 2
+    opt = out["opt_state"]
+    want = (jax.tree.leaves(TM.params_to_numpy(out["params"]))
+            + [opt.step.numpy()]
+            + jax.tree.leaves(TM.params_to_numpy(opt.m))
+            + jax.tree.leaves(TM.params_to_numpy(opt.v)))
+    got = jax.tree.leaves((jp, jopt))
+    assert len(got) == len(want) == len(jax.tree.leaves(template))
+    for g, w in zip(got, want):
+        g = np.asarray(g)
+        assert g.shape == w.shape and g.itemsize == w.itemsize
+        assert np.array_equal(_bits(g), _bits(w))
+    assert {"wq_c", "wk_c", "ln_c"} <= set(jp["dec_blocks"])
+    assert not np.array_equal(_bits(jp["dec_blocks"]["wq_c"]),
+                              _bits(jparams["dec_blocks"]["wq_c"]))

@@ -82,7 +82,10 @@ FLASH_CASES = {
 def test_flash_backward_matches_jax_vjp(case):
     """dq, dk, dv (and out) of ``_flash`` against ``jax.vjp`` of the
     reference's ``_flash`` at q_block 8, kv_block 16; queries at positions
-    Sk - Sq .. Sk - 1 with one that sees no key (position -1)."""
+    Sk - Sq .. Sk - 1 with one that sees no key (position -1).  Not causal,
+    the reference's ``_flash`` lets the keys that pad Sk to whole kv blocks
+    through (``test_torch_flash_padding.py`` pins it), so there the
+    reference is ``jax.vjp`` of its direct path."""
     Sq, Sk, causal, window, dtype = FLASH_CASES[case]
     rng = np.random.default_rng(len(case))
     B, NH, dh = 2, 4, 16
@@ -94,8 +97,14 @@ def test_flash_backward_matches_jax_vjp(case):
     pk = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
     jdt = jnp.dtype(dtype)
     jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
-    out, vjp = jax.vjp(lambda a, b, c: JL._flash(a, b, c, pq, pk, causal,
-                                                 window, 8, 16), jq, jk, jv)
+    if causal:
+        def reference(a, b, c):
+            return JL._flash(a, b, c, pq, pk, causal, window, 8, 16)
+    else:
+        def reference(a, b, c):
+            return JL.attention(a, b, c, pq, pk, causal=False, window=window,
+                                q_block=Sq, kv_block=Sk)
+    out, vjp = jax.vjp(reference, jq, jk, jv)
     want = (out,) + vjp(jdo)
     tdt = getattr(torch, dtype)
     tq, tk, tv = (_t(a).to(tdt).requires_grad_() for a in (q, k, v))
