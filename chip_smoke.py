@@ -190,7 +190,25 @@
    atol = 2e-4 and the restored state equal to the saved one bit for bit.
    The six kernels' launch counts are zeroed before this phase and read
    after it (``train_launches``; the training path launches none).
-12. Times each kernel at its path's shapes beside its bound (and the share
+12. The dry-run tooling (``dryrun_path``): (a) ``python -m
+   repro_torch.launch.dryrun`` in a subprocess, one fake world of 512 ranks
+   on fake "cuda" tensors (nothing allocated), on DRYRUN_CELLS at full
+   width (decode, train, a sub-quadratic long decode on the 2 x 16 x 16
+   mesh and a moe prefill): every record ``ok``, its per-chip FLOPs,
+   bytes, collective bytes and counts, dominant roofline term and trace
+   seconds printed; (b) a real sharded step on the card, an NCCL world of
+   one rank and a (1, 1) ("data", "model") mesh: stablelm-1.6b's train
+   step at 11's 8 x 2048 with ``distribute_params`` and granite-8b's
+   prefill and one decode step at 9's shapes, each against the plain step
+   on the same weights (loss, every gradient, logits: equal bits or the
+   gap, held to the CPU tests' bf16 tolerances: loss 1e-4, gradients 3e-2
+   of max |g| (the embedding's reported, not gated: the plain step adds
+   its occurrences in bf16), logits 1e-3 of max |logit|), the sharded
+   clip threshold the
+   exact quantile of its own |g| (two direct counts, as 11), and both
+   step times, plain and sharded (DTensor's host cost), beside the card's
+   name and power limit.  No kernel runs on this path.
+13. Times each kernel at its path's shapes beside its bound (and the share
    of the peak memory rate it reaches), its plain version and the PyTorch
    calls that compute the same function, and prints one ``kernels`` JSON
    line with all six, each with its launches per
@@ -204,6 +222,7 @@ beside it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -211,6 +230,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -232,6 +252,14 @@ FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("audio_serve_path", "seamless-m4t-large-v2"))
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
+# the dry-run cells of phase 12 (arch, shape, mesh): decode, train, a long
+# decode on 2 x 16 x 16, a moe decode and an ssm prefill
+DRYRUN_CELLS = (("granite-8b", "decode_32k", "pod1"),
+                ("stablelm-1.6b", "train_4k", "pod1"),
+                ("mamba2-1.3b", "long_500k", "pod2"),
+                ("olmoe-1b-7b", "decode_32k", "pod1"),
+                ("mamba2-1.3b", "prefill_32k", "pod1"))
+DRYRUN_LIMIT_S = 600
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
 U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -3065,6 +3093,236 @@ def train_path(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. the dry-run tooling, and a sharded step on the card
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_cells() -> dict:
+    """(a): the dry-run CLI on DRYRUN_CELLS in one subprocess; each
+    record's per-chip figures."""
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+               out, "--force"]
+        for cell in DRYRUN_CELLS:
+            cmd += ["--cell", ":".join(cell)]
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_LIMIT_S)
+        wall = time.perf_counter() - t0
+        records = {}
+        for arch, shape, mesh in DRYRUN_CELLS:
+            path = os.path.join(out, f"{arch}__{shape}__{mesh}.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {
+                "status": "missing"}
+            records[f"{arch}:{shape}:{mesh}"] = {
+                k: rec.get(k) for k in (
+                    "status", "error", "kind", "chips", "trace_s",
+                    "hlo_flops_per_chip", "hlo_bytes_per_chip",
+                    "collective_bytes_per_chip", "collective_counts",
+                    "model_flops_per_chip", "useful_flops_ratio",
+                    "memory_analysis")}
+            records[f"{arch}:{shape}:{mesh}"]["dominant"] = (
+                rec.get("roofline") or {}).get("dominant")
+    bad = [c for c, r in records.items() if r["status"] != "ok"]
+    if proc.returncode != 0 or bad:
+        raise AssertionError(f"dryrun: exit {proc.returncode}, cells {bad}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return {"cells": records, "subprocess_s": wall,
+            "trace_s": sum(r["trace_s"] for r in records.values())}
+
+
+def _grad_gaps(got, want, names) -> dict:
+    """{leaf path: max |got - want| / max |want|}."""
+    return {n: float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for n, g, w in zip(names, got, want)}
+
+
+def _train_grads(params, cfg, batch, mesh):
+    """(loss, the gradients as plain tensors, the exact TRAIN_Q-quantile
+    of |g| by the radix route) of one forward and backward, plain or on
+    ``mesh``."""
+    from repro_torch import pytree
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, model
+    from repro_torch.optim.quantile_ops import pytree_radix_quantile
+    tree = model.param_tree(params)
+    params.requires_grad_(True)
+    with (layers.on_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        loss, _ = model.forward_loss(params, batch, cfg)
+        loss.backward()
+        grads = [steps.placed_grad(p) for p in pytree.leaves(tree)]
+        for p in pytree.leaves(tree):
+            p.grad = None
+        params.requires_grad_(False)
+        thr = pytree_radix_quantile(grads, TRAIN_Q)
+    local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
+    return float(layers.whole(loss).detach()), local, thr
+
+
+def _second_s(fn) -> tuple:
+    """(result, seconds) of the second of two runs."""
+    _sync_time(fn)
+    return _sync_time(fn)
+
+
+# the sharded steps' gates on bf16 weights: ``test_torch_train.py``'s bf16
+# tolerances (loss 1e-4, each gradient but the embedding's 3e-2 of its
+# leaf's max |g|), the logits 1e-3 of max |logit| (about a bf16 half-ulp)
+SHARDED_LOSS_TOL, SHARDED_GRAD_TOL, SHARDED_LOGIT_TOL = 1e-4, 3e-2, 1e-3
+
+
+def _sharded_train(mesh, seed: int) -> dict:
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import sharding as shd, steps
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config(TRAIN_ARCH)
+    params = model.init_params(cfg, seed, device="cuda")
+    pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                        global_batch=TRAIN_B, seed=seed))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.batch_at(0).items()}
+    opt_cfg = AdamWConfig(quantile_clip=TRAIN_Q)
+    loss_p, grads_p, thr_p = _train_grads(params, cfg, batch, None)
+    tree = model.param_tree(params)
+    saved = [w.detach().clone() for w in pytree.leaves(tree)]
+    step = steps.make_train_step(cfg, opt_cfg)
+    opt = adamw_init(tree)
+    _, plain_s = _second_s(lambda: step(params, opt, batch))
+    del opt, step
+    with torch.no_grad():
+        for w, v in zip(pytree.leaves(tree), saved):
+            w.copy_(v)
+    del saved
+    torch.cuda.empty_cache()
+
+    mcfg = steps.mesh_cfg(cfg, mesh, TRAIN_B)
+    shd.distribute_params(params, mesh)
+    batch = steps.distribute_inputs((batch,), (shd.placements_tree(
+        mesh, shd.batch_spec(mesh, batch, TRAIN_B)),), mesh)[0]
+    loss_s, grads_s, thr_s = _train_grads(params, mcfg, batch, mesh)
+    _check_exact_quantile("sharded train step", grads_s, thr_s, TRAIN_Q)
+    # the embedding's gradient is a sum of every occurrence of a token
+    # (Zipf: thousands for the common ones), which the plain step adds
+    # in bf16 (``index_put_``) and the sharded one through ``F.embedding``'s
+    # backward: reported, not gated
+    gaps = _grad_gaps(grads_s, grads_p,
+                      pytree.paths(model.param_tree(params)))
+    embed_gap = gaps.pop("['embed']")
+    worst = max(gaps, key=gaps.get)
+    gap = gaps[worst]
+    same = all(torch.equal(a, b) for a, b in zip(grads_s, grads_p))
+    del grads_p, grads_s
+    tree = model.param_tree(params)
+    opt = adamw_init(tree)
+    opt = steps.distribute_inputs((opt,), (shd.placements_tree(
+        mesh, shd.opt_shardings(mesh, opt, tree)),), mesh)[0]
+    step = steps.make_train_step(mcfg, opt_cfg, mesh)
+    _, sharded_s = _second_s(lambda: step(params, opt, batch))
+    out = {"arch": TRAIN_ARCH, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "loss_plain": loss_p, "loss_sharded": loss_s,
+           "loss_bits_equal": loss_p == loss_s,
+           "loss_gap": abs(loss_s - loss_p), "grads_bits_equal": same,
+           "grad_gap_share_of_max": gap, "grad_gap_worst_leaf": worst,
+           "leaves_bits_equal": sum(g == 0.0 for g in gaps.values()),
+           "leaves": len(gaps) + 1,
+           "embed_grad_gap_share_of_max": embed_gap,
+           "clip_threshold_plain": float(thr_p),
+           "clip_threshold_sharded": float(thr_s),
+           "step_s_plain": plain_s, "step_s_sharded": sharded_s}
+    if not (math.isfinite(loss_s) and out["loss_gap"] <= SHARDED_LOSS_TOL
+            and gap <= SHARDED_GRAD_TOL):
+        raise AssertionError(f"sharded train step: {out}")
+    return out
+
+
+def _sharded_serve(mesh, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd, steps
+    from repro_torch.models import layers, model
+
+    cfg = get_config(SERVE_ARCH)
+    B, S = SERVE_B, SERVE_PROMPT
+    params = model.init_params(cfg, seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    inputs = ({"tokens": tokens[:, :S]}, tokens[:, S:],
+              torch.full((B,), S, dtype=torch.int32, device="cuda"))
+
+    def run(cfg, mesh, inputs, recache):
+        prompt, token, at = inputs
+        prefill = steps.make_prefill_step(cfg, S + 1, mesh)
+        decode = steps.make_decode_step(cfg, mesh)
+        (logits, cache), pre_s = _second_s(lambda: prefill(params, prompt))
+        cache = recache(cache)
+        (step, _), dec_s = _second_s(lambda: decode(params, token, cache,
+                                                     at))
+        return layers.whole(logits), layers.whole(step), pre_s, dec_s
+
+    plain = run(cfg, None, inputs, lambda c: c)
+    mcfg = steps.mesh_cfg(cfg, mesh, B)
+    shd.distribute_params(params, mesh)
+    b = ("data",)
+    inputs = steps.distribute_inputs(inputs, (
+        shd.placements_tree(mesh, shd.batch_spec(mesh, inputs[0], B)),
+        shd.placements((b, None), mesh), shd.placements((b,), mesh)), mesh)
+    sharded = run(mcfg, mesh, inputs, lambda c: steps.redistribute_tree(
+        c, shd.placements_tree(mesh, shd.cache_shardings(mesh, c, mcfg, B, True)),
+        mesh))
+    out = {"arch": SERVE_ARCH, "batch": B, "prompt": S,
+           "prefill_bits_equal": bool(torch.equal(sharded[0], plain[0])),
+           "decode_bits_equal": bool(torch.equal(sharded[1], plain[1])),
+           "prefill_gap_share_of_max": _rel_err(sharded[0], plain[0]),
+           "decode_gap_share_of_max": _rel_err(sharded[1], plain[1]),
+           "prefill_s_plain": plain[2], "prefill_s_sharded": sharded[2],
+           "decode_s_plain": plain[3], "decode_s_sharded": sharded[3]}
+    if not (out["prefill_gap_share_of_max"] <= SHARDED_LOGIT_TOL
+            and out["decode_gap_share_of_max"] <= SHARDED_LOGIT_TOL):
+        raise AssertionError(f"sharded serve steps: {out}")
+    return out
+
+
+def _sharded_steps(seed: int) -> dict:
+    """(b): the train and serve steps on a (1, 1) mesh of an NCCL world
+    of one rank, each against the plain step on the same weights."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            out = {"train": _sharded_train(mesh, seed)}
+            torch.cuda.empty_cache()
+            out["serve"] = _sharded_serve(mesh, seed)
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def dryrun_path(seed: int) -> dict:
+    """12: the dry-run CLI's cells (a), then the sharded steps on the card
+    (b), with the card's name and power limit."""
+    t0 = time.perf_counter()
+    result = {"dryrun": _dryrun_cells()}
+    result.update(_sharded_steps(seed))
+    result["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    result["wall_s"] = time.perf_counter() - t0
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_all() -> None:
@@ -3178,6 +3436,11 @@ def main() -> int:
     train_launches = K.launches()
     for row in kernels:
         row["train_launches"] = train_launches.get(row["name"], 0)
+    K.reset_launches()
+    result = dryrun_path(args.seed)
+    print(json.dumps({"dryrun_path": result}), flush=True)
+    if any(K.launches().values()):
+        raise AssertionError(f"dryrun_path launched {K.launches()}")
     parity = tally.result()
     for name, (p, t) in parity.items():
         if p != t:

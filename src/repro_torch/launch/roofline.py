@@ -10,12 +10,17 @@ Counterpart of the model-independent half of ``repro/launch/roofline.py``:
   model_flops        6 N D (training) or 2 N D (serving) over the active
                      parameters
 
+  parse_collective_bytes   a step's collective bytes by kind, and counts
+  count_collective_phases  its number of collectives
+
 The rates are the NVIDIA H100 SXM's data-sheet figures, not the
 reference's TPU v5e ones: 989 TFLOP/s dense bf16 (67 TFLOP/s f32 without
 the tensor cores), 3.35 TB/s of HBM3, and NVLink 4 at 450 GB/s a
-direction.  The reference's HLO parsers (``parse_collective_bytes``,
-``count_collective_phases``) read XLA's partitioned modules; they wait for
-the multi-card tooling (``ROADMAP.md`` Queue 1 item 7).
+direction.  NVLink joins the 8 GPUs of one node: a mesh axis of 16 spans
+two nodes, whose link is slower, so ``LINK_BW`` overstates such an axis.
+The reference's collective parsers read XLA's partitioned HLO text; the
+port's read the record of ``step_analysis.analyze``, which counted the
+collectives as they ran.
 """
 from __future__ import annotations
 
@@ -56,6 +61,26 @@ def kernel_roofline(bytes_moved: float, seconds: float,
         "peak_gbs": peak / 1e9,
         "frac_of_peak": achieved / peak if peak else 0.0,
     }
+
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def parse_collective_bytes(analysis: Dict) -> Dict:
+    """Per-rank operand bytes of every collective of a step, by kind, and
+    under ``"count"`` the number of each, from ``step_analysis.analyze``'s
+    record (the reference parses them from HLO text: the same shape of
+    answer)."""
+    out = {k: int(analysis["collective_bytes"][k]) for k in COLLECTIVES}
+    out["count"] = {k: int(analysis["collective_counts"][k])
+                    for k in COLLECTIVES}
+    return out
+
+
+def count_collective_phases(analysis: Dict) -> int:
+    """Structural round count: the number of collectives the step ran."""
+    return sum(parse_collective_bytes(analysis)["count"].values())
 
 
 def roofline_terms(flops: float, bytes_accessed: float,

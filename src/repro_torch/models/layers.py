@@ -14,6 +14,7 @@ softmaxes over its raw scores, it does not give NaN).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional, Tuple
 
 import torch
@@ -23,6 +24,186 @@ from .config import ModelConfig
 
 NEG_INF = -1e30
 UNWRITTEN = 2 ** 30       # cache position of a slot never written
+
+
+# ---------------------------------------------------------------------------
+# distribution: the mesh the step runs on, and the reference's sharding
+# constraints as DTensor redistributions
+# ---------------------------------------------------------------------------
+
+_MESH = None              # the DeviceMesh of ``on_mesh``, else None
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """Run the model on ``mesh``: ``shard_act`` and ``shard_heads`` place
+    DTensors there, and a plain tensor meeting a DTensor (positions, masks,
+    rope angles) counts as replicated.  The step builders enter it; the
+    ``ModelConfig`` keeps the reference's fields and names no mesh."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESH = prev
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """``x`` redistributed to ``spec`` on the current mesh (a plain tensor,
+    or no mesh, passes through)."""
+    if _MESH is None or not _is_dtensor(x):
+        return x
+    from ..launch.sharding import placements
+    return x.redistribute(_MESH, placements(spec, _MESH))
+
+
+def gather_dims(x: torch.Tensor, dims: Tuple[int, ...] = ()) -> torch.Tensor:
+    """A DTensor with dims ``dims`` gathered whole and its pending partial
+    sums reduced (with no dims: the sums alone, so that an indexing op
+    after it sees whole values); a plain tensor as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim in dims)
+             else p for p in x.placements]
+    return x.redistribute(x.device_mesh, place)
+
+
+def whole_seq(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A (B, S, ...) DTensor with the sequence gathered (and pending sums
+    reduced) before a projection: Megatron-SP's all-gather ahead of the
+    column-parallel matmul.  Merging a batch shard and a sequence shard
+    in the matmul's reshape would make a strided shard, whose
+    redistributions DTensor plans by a graph search (seconds a matmul on
+    a 3-D mesh).  A plain tensor, or None, as it is."""
+    return gather_dims(x, (1,)) if x is not None else x
+
+
+def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
+                 src: torch.Tensor) -> None:
+    """``dst[:, idx] = src`` in place, in dst's dtype.  ``index_copy_``
+    has no sharding rule for a DTensor split along dim 1 (a decode
+    cache's sequence): each rank writes the slots its shard holds and
+    keeps the rest, with no communication (one slot a call)."""
+    if not _is_dtensor(dst):
+        dst.index_copy_(1, idx, src.to(dst.dtype))
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    if idx.numel() != 1:
+        raise ValueError("a sharded cache takes one slot a write")
+    mesh = dst.device_mesh
+    place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == 1)
+             else p for p in dst.placements]
+    if not _is_dtensor(src):
+        src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    local, new = dst.to_local(), src.redistribute(mesh, place).to_local()
+    # this rank's first position along dim 1 (torch.chunk's pieces, the
+    # mesh dims in order)
+    start, n = 0, dst.shape[1]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(dst.placements):
+        if p.is_shard() and p.dim == 1:
+            c = -(-n // mesh.size(i))
+            start += min(n, coord[i] * c)
+            n = max(0, min(n, (coord[i] + 1) * c) - coord[i] * c)
+    if n == 0:
+        return
+    at = whole(idx).to(torch.long) - start
+    mine = ((at >= 0) & (at < n)).reshape((1, 1) + (1,) * (local.ndim - 2))
+    at = at.clamp(0, n - 1)
+    local.index_copy_(1, at, torch.where(mine, new.to(local.dtype),
+                                         local.index_select(1, at)))
+
+
+def heads_view(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(shape)``, splitting dim 2 into (heads, dh) or merging
+    them back.  A DTensor whose dim 2 is split into pieces that do not
+    divide the head count (12 or 56 heads, or 8 KV heads, over 16) is
+    gathered there first: DTensor cannot view uneven head shards."""
+    if _is_dtensor(t):
+        heads = shape[2] if len(shape) > t.ndim else t.shape[2]
+        n = 1
+        for i, p in enumerate(t.placements):
+            if p.is_shard() and p.dim == 2:
+                n *= t.device_mesh.size(i)
+        if heads % n:
+            # the view on each rank's shard (dims 0 and 1 keep theirs), so
+            # that its backward views the gradient locally too
+            from torch.distributed.tensor import DTensor
+            t = gather_dims(t, (2,))
+            local = t.to_local()
+            local = local.reshape(*local.shape[:2], *shape[2:])
+            return DTensor.from_local(
+                local, t.device_mesh, t.placements, run_check=False,
+                shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+    return t.reshape(*shape)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole onto every rank, as a plain tensor (for an
+    op without a sharding rule); a plain tensor as it is."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A plain tensor made on every rank as a replicated DTensor on
+    ``like``'s mesh, where ``like`` is a DTensor (so that its gradient
+    comes back plain); else ``t`` as it is."""
+    if not _is_dtensor(like) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, like.device_mesh,
+                              (Replicate(),) * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def _batch_entry(n: int, cfg: ModelConfig):
+    return cfg.batch_axes if (cfg.batch_axes and n % cfg.dp_size == 0) \
+        else None
+
+
+def shard_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Residual-stream constraint between blocks.  Identity off-mesh and
+    for a config without distribution hints.
+
+    Dense/attention families: sequence-parallel, (B, S, D) ->
+    (batch, sp_axis, None) — Megatron-SP, norms/MLP input stays sharded.
+
+    SSM/hybrid families: feature-parallel, (batch, None, sp_axis) — the SSD
+    chunk scan slices the sequence axis every step, so a seq-sharded stream
+    would reshard once per chunk per layer; keeping D sharded makes
+    in_proj a row-parallel matmul instead.  Skips batch sharding when B
+    doesn't divide (long_500k B=1)."""
+    if not cfg.batch_axes and not cfg.sp_axis:
+        return x
+    if x.ndim != 3:
+        return x
+    b_spec = _batch_entry(x.shape[0], cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        d_spec = cfg.sp_axis if (cfg.sp_axis and x.shape[2] % 16 == 0) \
+            else None
+        return _constrain(x, (b_spec, None, d_spec))
+    s_spec = cfg.sp_axis if (cfg.sp_axis and x.shape[1] % 16 == 0) else None
+    return _constrain(x, (b_spec, s_spec, None))
+
+
+def shard_heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Tensor-parallel constraint on (B, S, H, dh): heads over the TP axis
+    (a head count that does not divide splits unevenly — e.g. 56 or 12
+    over 16)."""
+    if not cfg.sp_axis:
+        return t
+    return _constrain(t, (_batch_entry(t.shape[0], cfg), None, cfg.sp_axis,
+                          None))
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +324,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               kv_len: Optional[torch.Tensor] = None,
               q_block: int = 512, kv_block: int = 1024,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None,
+              cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """GQA attention.  q: (B, Sq, NH, dh); k, v: (B, Sk, KV, dh); pos_*:
     (B, S*) absolute positions.  Returns (B, Sq, NH, dh) in q's dtype.
 
@@ -159,6 +341,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = NH // KV
 
     if Sq == 1:
+        # on a mesh the grouped (KV, G) split needs whole heads: KV may not
+        # divide the TP axis
+        q = gather_dims(q, (2,))
         # a fill on the device: a host tensor copied over would sync
         scale = torch.full((), dh ** -0.5, dtype=torch.bfloat16,
                            device=q.device)
@@ -174,21 +359,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.einsum("bkgqt,btkd->bqkgd",
                          (p / l).to(torch.bfloat16).float(),
                          v.to(torch.bfloat16).float())
+        # on a mesh: the sums over the split sequence reduced, the heads
+        # whole, only the batch split kept (one token: a small gather)
+        o = gather_dims(o, (1, 2, 3, 4))
         return o.reshape(B, Sq, NH, dh).to(q.dtype)
 
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    if cfg is not None:
+        q = shard_heads(q, cfg)
+        k = shard_heads(k, cfg)
+        v = shard_heads(v, cfg)
 
     if Sq * Sk <= q_block * kv_block * 2:
-        qs = q.float() * dh ** -0.5
-        s = torch.einsum("bqhd,bthd->bhqt", qs, k.float())
         if bias is None:
             bias = _mask_bias(pos_q, pos_k, kv_len, causal, window)
-        s = s + bias[:, None]
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqt,bthd->bqhd", p, v.float())
-        return o.to(q.dtype)
+        if _is_dtensor(q):
+            return _on_shards(_direct, (q, k, v), (bias,))
+        return _direct(q, k, v, bias)
 
     if kv_len is not None:
         raise ValueError("the blockwise path masks through position "
@@ -336,6 +525,25 @@ def _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout, causal: bool,
     return dq[:, :Sq], dk[:, :Sk], dv[:, :Sk]
 
 
+def _meta_if_fake(fn, *args):
+    """``fn(*args)``; fake tensors (a dry-run's shards) go through it as
+    meta tensors and come back fake.  The blockwise loops are thousands
+    of ops a layer, and an op costs ~0.7 ms under FakeTensorMode against
+    ~25 us on meta; both run the same ops on the same shapes, so a
+    dispatch mode above them counts the same work."""
+    from torch._subclasses.fake_tensor import (FakeTensor,
+                                               unset_fake_temporarily)
+    fakes = [a for a in args if isinstance(a, FakeTensor)]
+    if not fakes:
+        return fn(*args)
+    device = fakes[0].device
+    with unset_fake_temporarily():
+        out = fn(*(torch.empty(a.shape, dtype=a.dtype, device="meta")
+                   if isinstance(a, FakeTensor) else a for a in args))
+    return tuple(torch.empty(o.shape, dtype=o.dtype, device=device)
+                 for o in out)
+
+
 class _Flash(torch.autograd.Function):
     """Blockwise attention whose backward recomputes the probabilities;
     positions get no gradient."""
@@ -343,8 +551,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, pos_q, pos_k, causal, window, q_block,
                 kv_block):
-        out, lse = _flash_fwd_impl(q, k, v, pos_q, pos_k, causal, window,
-                                   q_block, kv_block)
+        out, lse = _meta_if_fake(_flash_fwd_impl, q, k, v, pos_q, pos_k,
+                                 causal, window, q_block, kv_block)
         ctx.save_for_backward(q, k, v, pos_q, pos_k, out, lse)
         ctx.blocking = (causal, window, q_block, kv_block)
         return out.to(q.dtype)
@@ -353,18 +561,65 @@ class _Flash(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, pos_q, pos_k, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout,
-                                     *ctx.blocking)
+        dq, dk, dv = _meta_if_fake(_flash_bwd_impl, q, k, v, pos_q, pos_k,
+                                   out, lse, dout, *ctx.blocking)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None, None)
+
+
+def _direct(q, k, v, bias) -> torch.Tensor:
+    """The direct path in f32: every score at once, the additive mask
+    ``bias`` (B, Sq, Sk)."""
+    qs = q.float() * q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bthd->bhqt", qs, k.float())
+    s = s + bias[:, None]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqt,bthd->bqhd", p, v.float())
+    return o.to(q.dtype)
 
 
 def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
            kv_block: int) -> torch.Tensor:
     """Blockwise attention (q, k and v at the same head count), in q's
-    dtype, differentiable in q, k and v."""
-    return _Flash.apply(q, k, v, pos_q, pos_k, causal, window, q_block,
-                        kv_block)
+    dtype, differentiable in q, k and v.  DTensors run on each rank's
+    shard (``_on_shards``): ``_Flash`` has no sharding rule."""
+    def run(q, k, v, pos_q, pos_k):
+        return _Flash.apply(q, k, v, pos_q, pos_k, causal, window, q_block,
+                            kv_block)
+    if _is_dtensor(q):
+        return _on_shards(run, (q, k, v), (pos_q, pos_k))
+    return run(q, k, v, pos_q, pos_k)
+
+
+def _on_shards(fn, heads: tuple, rows: tuple) -> torch.Tensor:
+    """``fn(*heads, *rows)`` of DTensors on each rank's shard, for the
+    attention paths without a sharding rule (or, on torch 2.11, whose
+    einsums cannot flatten a split batch and split heads): attention is
+    independent across batch rows and heads, so ``heads`` (q, k, v:
+    (B, S, H, dh)) keep q's batch and head shards and gather the rest
+    (the sequence, dh), and ``rows`` (positions, masks: (B, ...)) their
+    batch shard; a plain tensor counts as replicated.  The result takes
+    q's shape and placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    q = heads[0]
+    mesh = q.device_mesh
+    place = tuple(p if p.is_shard() and p.dim in (0, 2) else Replicate()
+                  for p in q.placements)
+    row_place = tuple(Shard(0) if p.is_shard() and p.dim == 0
+                      else Replicate() for p in place)
+
+    def local(t, pl):
+        if not _is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+
+    out = fn(*(local(t, place) for t in heads),
+             *(local(t, row_place) for t in rows)).contiguous()
+    return DTensor.from_local(out, mesh, place, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
 
 
 # ---------------------------------------------------------------------------
@@ -401,11 +656,12 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     0..Sk-1 (the encoder-decoder passes ``causal=False``)."""
     B, S, D = x.shape
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    x, xkv = whole_seq(x), whole_seq(xkv)
     src = x if xkv is None else xkv
     Sk = src.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, NH, dh)
-    k = (src @ p["wk"]).reshape(B, Sk, KV, dh)
-    v = (src @ p["wv"]).reshape(B, Sk, KV, dh)
+    q = heads_view(x @ p["wq"], B, S, NH, dh)
+    k = heads_view(src @ p["wk"], B, Sk, KV, dh)
+    v = heads_view(src @ p["wv"], B, Sk, KV, dh)
     if xkv is None:
         if angles is None and cfg.mrope and positions3 is not None:
             angles = mrope_angles(positions3, dh, cfg.rope_theta,
@@ -414,7 +670,7 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta, angles=angles)
         k = apply_rope(k, positions, cfg.rope_theta, angles=angles)
     kw = dict(causal=causal, window=cfg.swa_window, q_block=cfg.attn_q_block,
-              kv_block=cfg.attn_kv_block)
+              kv_block=cfg.attn_kv_block, cfg=cfg)
 
     if cache is not None:
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
@@ -434,9 +690,9 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             # dynamic_update_slice clamps its start
             idx = kv_len[:1].long().clamp(0, S_cache - S_w) + torch.arange(
                 S_w, device=x.device)
-            ck.index_copy_(1, idx, k_w.to(ck.dtype))
-            cv.index_copy_(1, idx, v_w.to(cv.dtype))
-            cpos.index_copy_(1, idx, p_w.to(torch.int32))
+            _write_slots(ck, idx, k_w)
+            _write_slots(cv, idx, v_w)
+            _write_slots(cpos, idx, p_w)
         out = attention(q, ck, cv, positions, cpos, bias=bias, **kw)
         new_cache = cache
     else:
@@ -444,7 +700,7 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             Sk, dtype=torch.int32, device=x.device).expand(B, Sk)
         out = attention(q, k, v, positions, pos_k, **kw)
         new_cache = None
-    return out.reshape(B, S, NH * dh) @ p["wo"], new_cache
+    return heads_view(out, B, S, NH * dh) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +710,7 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    x = whole_seq(x)
     if cfg.mlp_type == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_down"]

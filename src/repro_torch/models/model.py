@@ -159,21 +159,33 @@ def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     and is written in place; ``positions3``, ``angles`` and ``bias`` as
     ``layers.attn_block`` takes them; ``enc_out``, ``cross`` and
     ``cross_bias`` as ``_cross_attention`` takes them."""
+    # on a mesh each branch's output takes the residual stream's placement
+    # before the add (Megatron-SP's reduce-scatter), so that its gradient
+    # comes back whole along the sequence (``_residual``)
     h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
                              positions=positions, positions3=positions3,
                              cache=cache, kv_len=kv_len, angles=angles,
                              bias=bias, causal=causal)
-    x = x + h
+    x = x + _residual(h, cfg)
     if "wq_c" in p:
-        x = x + _cross_attention(p, x, cfg, positions, enc_out, cross,
-                                 cross_bias)
+        x = x + _residual(_cross_attention(p, x, cfg, positions, enc_out,
+                                           cross, cross_bias), cfg)
     xn = layers.norm(x, p, cfg, "ln2")
     if cfg.family != "moe":
-        return x + layers.mlp_block(p, xn, cfg), None
+        return x + _residual(layers.mlp_block(p, xn, cfg), cfg), None
     y, aux = moe.moe_block(p, xn, cfg)
     if cfg.moe_dense_residual:
         y = y + layers.mlp_block(p, xn, cfg)
-    return x + y, aux
+    return x + _residual(y, cfg), aux
+
+
+def _residual(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A block branch's output on the residual stream's placement
+    (``layers.shard_act``): a reduce-scatter of its partial sums, whose
+    backward gathers the stream's gradient before the branch's matmuls
+    flatten it (torch 2.11's DTensor cannot flatten a split sequence).
+    Identity off a mesh."""
+    return layers.shard_act(h, cfg)
 
 
 def _cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -197,13 +209,13 @@ def _cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                                  causal=False, xkv=enc_out)[0]
     B, S, _ = x.shape
     NH, dh = cfg.n_heads, cfg.d_head
-    q = (xn @ cp["wq"]).reshape(B, S, NH, dh)
+    q = layers.heads_view(xn @ cp["wq"], B, S, NH, dh)
     Sf = cross["k"].shape[1]
     pos_k = torch.arange(Sf, dtype=torch.int32, device=x.device).expand(B, Sf)
     o = layers.attention(q, cross["k"], cross["v"], positions, pos_k,
                          causal=False, q_block=cfg.attn_q_block,
-                         kv_block=cfg.attn_kv_block, bias=bias)
-    return o.reshape(B, S, NH * dh) @ cp["wo"]
+                         kv_block=cfg.attn_kv_block, bias=bias, cfg=cfg)
+    return layers.heads_view(o, B, S, NH * dh) @ cp["wo"]
 
 
 class DenseBlock(nn.Module):
@@ -237,8 +249,8 @@ class MambaBlock(nn.Module):
         cfg = cfg or self.cfg
         xn = layers.rmsnorm(x, self.p["norm"])
         if cache is None:
-            return x + ssm.ssd_forward(self.p, xn, cfg)
-        return x + ssm.ssd_decode(self.p, xn, cfg, cache)[0]
+            return x + _residual(ssm.ssd_forward(self.p, xn, cfg), cfg)
+        return x + _residual(ssm.ssd_decode(self.p, xn, cfg, cache)[0], cfg)
 
 
 class Transformer(nn.Module):
@@ -327,6 +339,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     for block in _mamba_blocks(model):
         fill_mamba(block.p)
     return model
+
+
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """The model on the meta device: every leaf's shape and dtype, nothing
+    allocated (the dry-run's parameters)."""
+    return Transformer(cfg, device="meta")
+
+
+def param_dicts(params: Transformer):
+    """(path, ``nn.ParameterDict``) of every weight dict of the model, the
+    path as ``param_tree`` reaches it: () for the top weights, ("blocks",
+    i), ("mamba", g, i), ("shared",), ("enc_blocks", i), ("dec_blocks",
+    i)."""
+    out = [((), params.p)]
+    if params.cfg.family == "hybrid":
+        out += [(("mamba", g, i), block.p)
+                for g, group in enumerate(params.mamba)
+                for i, block in enumerate(group)]
+        out.append((("shared",), params.shared.p))
+        return out
+    names = (("enc_blocks", "dec_blocks") if params.cfg.is_encdec
+             else ("blocks",))
+    for name in names:
+        out += [((name, i), block.p)
+                for i, block in enumerate(getattr(params, name))]
+    return out
 
 
 def _dense_blocks(params: Transformer):
@@ -511,12 +549,13 @@ def _run_encoder(params: Transformer, frames: torch.Tensor,
     then rmsnorm by ``enc_norm`` (rmsnorm for a LayerNorm config too, as
     the reference's ``_run_encoder``)."""
     B, Sf, _ = frames.shape
-    x = frames.to(_pdt(cfg))
+    x = layers.shard_act(frames.to(_pdt(cfg)), cfg)
     positions = torch.arange(Sf, dtype=torch.int32,
                              device=x.device).expand(B, Sf)
     for block in params.enc_blocks:
         run = _remat(block, cfg) if remat else block
         x, _ = run(x, cfg, positions=positions, causal=False)
+        x = layers.shard_act(x, cfg)
     return layers.rmsnorm(x, params.p["enc_norm"])
 
 
@@ -530,28 +569,45 @@ def _run_decoder_train(params: Transformer, x: torch.Tensor,
     returns the residual stream and the sum of the layers' load-balance
     losses (0 outside the moe family)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shard = functools.partial(layers.shard_act, cfg=cfg)
+    x = shard(x)
     if cfg.is_encdec:
         for block in params.dec_blocks:
             x, _ = _remat(block, cfg)(x, cfg, positions=positions,
                                       enc_out=enc_out)
+            x = shard(x)
         return x, aux
     if cfg.family == "ssm":
         for block in params.blocks:
-            x = _remat(block, cfg)(x, cfg)
+            x = shard(_remat(block, cfg)(x, cfg))
         return x, aux
     if cfg.family == "hybrid":
         for group in params.mamba:
             for block in group:
-                x = _remat(block, cfg)(x, cfg)
+                x = shard(_remat(block, cfg)(x, cfg))
             x, _ = _remat(params.shared, cfg)(x, cfg, positions=positions,
                                               positions3=positions3)
+            x = shard(x)
         return x, aux
     for block in params.blocks:
         x, aux_l = _remat(block, cfg)(x, cfg, positions=positions,
                                       positions3=positions3)
+        x = shard(x)
         if aux_l is not None:
             aux = aux + aux_l
     return x, aux
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim.  A vocab-sharded DTensor row (the
+    op has no sharding rule for it, and would gather the logits whole)
+    takes the max, then the sum of exps, each a small partial
+    reduction."""
+    if not layers._is_dtensor(logits):
+        return torch.logsumexp(logits, -1)
+    m = layers.gather_dims(logits.detach().amax(-1, keepdim=True))
+    return (m + torch.log(layers.gather_dims(
+        torch.exp(logits - m).sum(-1, keepdim=True))))[..., 0]
 
 
 def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
@@ -569,12 +625,19 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+    # on a mesh: the head's d_model gathered once (FSDP), its vocab left
+    # split, and each chunk's positions whole, so that the logits come out
+    # split by batch and vocab (not a partial sum of the whole logits)
+    head = layers.gather_dims(head, (0,))
     for c in range(nc):
-        xb = x[:, c * chunk:(c + 1) * chunk]
+        xb = layers.whole_seq(x[:, c * chunk:(c + 1) * chunk])
         lb = labels[:, c * chunk:(c + 1) * chunk]
         logits = (xb @ head).float()
-        lse = torch.logsumexp(logits, -1)
-        gold = logits.gather(-1, lb.clamp(min=0).long()[..., None])[..., 0]
+        lse = _logsumexp(logits)
+        # a vocab-sharded gather is a masked partial sum: reduce it before
+        # the index drops its last dim
+        gold = layers.gather_dims(logits.gather(
+            -1, lb.clamp(min=0).long()[..., None]))[..., 0]
         valid = lb >= 0
         tot = tot + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum(dtype=torch.int32)
@@ -635,8 +698,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     "conv": (L, B, K - 1, d_inner + 2N)}; a hybrid: {"mamba": those at (G,
     every, ...), "shared": K/V and positions of G layers over
     ``cache_len``}; an encoder-decoder: {"self": that attention cache,
-    "cross": zeroed K/V (L, B, ``enc_len``, KV, dh)}."""
+    "cross": zeroed K/V (L, B, ``enc_len``, KV, dh)}.  On a mesh
+    (``layers.on_mesh``) the leaves are DTensors placed as
+    ``launch.sharding.cache_shardings`` places a prefill cache."""
     device = require_device(device)
+    if layers._MESH is not None and device.type != "meta":
+        # on a mesh (``layers.on_mesh``): DTensors placed as the
+        # reference's prefill cache shardings
+        from ..launch.sharding import sharded_cache
+        return sharded_cache(cfg, batch_size, cache_len, enc_len,
+                             layers._MESH, dtype)
     dt = dtype or _pdt(cfg)
     B = batch_size
     if cfg.family == "ssm":
@@ -660,6 +731,18 @@ def _layer_cache(cache: Dict[str, torch.Tensor], *i) -> dict:
     return {name: t[i] for name, t in cache.items()}
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``.  A DTensor table has its
+    vocabulary gathered (its d_model stays split) and goes through
+    ``F.embedding``, whose sharding rule covers its backward: torch 2.11's
+    DTensor fails on the index's backward (``index_put``), and the
+    vocab-split embedding's masked partial sums fail with split tokens."""
+    if layers._is_dtensor(table):
+        return torch.nn.functional.embedding(
+            tokens.long(), layers.gather_dims(table, (0,)))
+    return table[tokens.long()]
+
+
 def _embed_inputs(top: Mapping[str, torch.Tensor],
                   batch: Mapping[str, torch.Tensor], cfg: ModelConfig):
     """The input stream, positions 0..S-1 and the M-RoPE positions, from
@@ -671,7 +754,7 @@ def _embed_inputs(top: Mapping[str, torch.Tensor],
     positions broadcast to 3 streams, else None."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = top["embed"][tokens.long()]
+    x = _embed(top["embed"], tokens)
     if cfg.modality == "vision_stub" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype) @ top["patch_proj"]
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -693,7 +776,7 @@ def _prefill_mamba(block: MambaBlock, x: torch.Tensor, cfg: ModelConfig):
     state)) from the same chunk scan."""
     y, state = ssm.ssd_forward(block.p, layers.rmsnorm(x, block.p["norm"]),
                                cfg, return_state=True)
-    return x + y, state
+    return x + _residual(y, cfg), state
 
 
 def _stack_states(states: list) -> Dict[str, torch.Tensor]:
@@ -718,10 +801,13 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
     if cfg.is_encdec:
         return _prefill_encdec(params, batch, cfg, cache_len)
     x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
+    shard = functools.partial(layers.shard_act, cfg=cfg)
+    x = shard(x)
     if cfg.family == "ssm":
         states = []
         for block in params.blocks:
             x, state = _prefill_mamba(block, x, cfg)
+            x = shard(x)
             states.append(state)
         return _logits(params, x[:, -1:], cfg), _stack_states(states)
     cache = init_cache(cfg, B, cache_len, device=params.device)
@@ -731,17 +817,20 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
             states = []
             for block in group:
                 x, state = _prefill_mamba(block, x, cfg)
+                x = shard(x)
                 states.append(state)
             groups.append(_stack_states(states))
             x, _ = params.shared(x, cfg, positions=positions,
                                  positions3=positions3,
                                  cache=_layer_cache(cache["shared"], g))
+            x = shard(x)
         cache["mamba"] = {name: torch.stack([s[name] for s in groups])
                           for name in ("ssm", "conv")}
         return _logits(params, x[:, -1:], cfg), cache
     for i, block in enumerate(params.blocks):
         x, _ = block(x, cfg, positions=positions, positions3=positions3,
                      cache=_layer_cache(cache, i))
+        x = shard(x)
     return _logits(params, x[:, -1:], cfg), cache
 
 
@@ -758,6 +847,7 @@ def _prefill_encdec(params: Transformer, batch: Mapping[str, torch.Tensor],
         cross["v"].copy_((enc_out @ block.p["wv_c"]).reshape(B, Sf, KV, dh))
         x, _ = block(x, cfg, positions=positions,
                      cache=_layer_cache(cache["self"], i), cross=cross)
+        x = layers.shard_act(x, cfg)
     return _logits(params, x[:, -1:], cfg), cache
 
 
@@ -778,7 +868,12 @@ def _decode_attention(cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     else:
         angles = layers.rope_angles(positions, cfg.d_head, cfg.rope_theta)
     slot = write_pos[:1].long().clamp(0, W - 1)
-    pos_k = cache["pos"][0].index_copy(1, slot, positions)
+    if layers._is_dtensor(cache["pos"]):
+        # no sharding rule for index_copy: each rank writes its own slots
+        pos_k = cache["pos"][0].clone()
+        layers._write_slots(pos_k, slot, positions)
+    else:
+        pos_k = cache["pos"][0].index_copy(1, slot, positions)
     bias = layers._mask_bias(positions, pos_k, None, True, cfg.swa_window)
     return write_pos, angles, bias
 
@@ -795,7 +890,7 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: Dict,
     attend over their cross cache, under one all-zero mask bias made on
     the device for every layer."""
     B = token.shape[0]
-    x = params.p["embed"][token.long()]
+    x = _embed(params.p["embed"], token)
     positions = cache_len[:, None].to(torch.int32).expand(B, 1)
     if cfg.family == "ssm":
         for i, block in enumerate(params.blocks):

@@ -25,6 +25,7 @@ from typing import Mapping, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import layers
 from .config import ModelConfig
 
 
@@ -86,22 +87,30 @@ def moe_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     B, S, D = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
-    xt = x.reshape(T, D)
+    xt = layers.whole_seq(x).reshape(T, D)
     probs, top_p, top_i = route(p, xt, cfg)
 
     # the load-balance loss: E * sum_e f_e * p_e
-    counts = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    # (a compare against every expert, not ``bincount``: its output length
+    # depends on the data, which a fake tensor cannot know)
+    experts = torch.arange(E, device=x.device)
+    counts = (top_i.reshape(-1, 1) == experts).sum(0).float()
     aux = E * ((counts / (T * k)) * probs.mean(0)).sum()
 
     # the dispatch: buffer row (e, c) holds the token of expert e's c-th
     # sorted assignment, or the zero row T where e got fewer than c + 1
     cap = capacity(T, cfg)
-    d = dispatch(top_i, cap, E)
+    # the sort and searches of the dispatch have no sharding rule: on a
+    # mesh they run on the whole top_i, gathered onto every rank
+    d = dispatch(layers.whole(top_i), cap, E)
     tok_s = d.order // k
     c = torch.arange(cap, device=x.device)
     src = (d.start[:, None] + c).clamp(max=T * k - 1)
     rows = torch.where(c < d.count[:, None], tok_s[src], T)
-    buf = F.pad(xt, (0, 0, 0, 1))[rows]                     # (E, cap, D)
+    # (on a mesh the tokens are gathered whole onto every rank for the
+    # dispatch's gather, as the sort above)
+    buf = layers.replicated(F.pad(layers.whole(xt), (0, 0, 0, 1))[rows],
+                            like=xt)                          # (E, cap, D)
 
     # the experts (SwiGLU), one batched matmul each
     h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])

@@ -19,6 +19,7 @@ import math
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core import local_ops
 from ..core.grouped import gk_select_grouped
@@ -117,16 +118,30 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
     sums < 2^31.  A leaf longer than a chunk of 2^20 keys is padded to
     whole chunks, as the reference pads every leaf; a shorter one is one
     row of its own length (the same counts).  Keys are held as int64 (uint32 arithmetic, wrap
-    included, masked to 32 bits).  Returns a 0-d f32 tensor."""
-    leaves = [transform(l).to(torch.float32) for l in tree_leaves(tree)]
-    if not leaves:
-        raise ValueError("empty pytree")
-    device = leaves[0].device
-    n_total = sum(int(l.numel()) for l in leaves)
-    k = local_ops.target_rank(n_total, q)
+    included, masked to 32 bits).  Returns a 0-d f32 tensor.
 
-    def leaf_chunks(l):
-        u = u32_as_int64(to_sortable_u32(l.reshape(-1)))
+    DTensor leaves count on each rank's shard: the leaves split over the
+    same mesh dimensions form a group, and a group's (hi, lo) pairs of
+    one digit's bounds are summed
+    over those dimensions in one all-reduce, so a shard replicated on
+    another dimension counts once.  Every rank gets the same answer, the
+    sort's of the whole tree."""
+    tree_l = tree_leaves(tree)
+    if not tree_l:
+        raise ValueError("empty pytree")
+    n_total = sum(int(l.numel()) for l in tree_l)
+    k = local_ops.target_rank(n_total, q)
+    groups = {}                        # split mesh dims -> (reduce, leaves)
+    for l in tree_l:
+        dims, local, reduce = _split_dims(l)
+        groups.setdefault(dims, (reduce, []))[1].append(
+            transform(local).to(torch.float32))
+    device = next(iter(groups.values()))[1][0].device
+
+    def keys(l):
+        return u32_as_int64(to_sortable_u32(l.reshape(-1)))
+
+    def rows(u):
         if u.numel() <= _RADIX_CHUNK:
             return u[None]          # one row, unpadded: the same counts
         pad = (-u.numel()) % _RADIX_CHUNK
@@ -135,17 +150,42 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
             u = torch.cat([u, u.new_full((pad,), 0xFFFFFFFE)])
         return u.reshape(-1, _RADIX_CHUNK)
 
-    chunked = [leaf_chunks(l) for l in leaves]
+    if any(isinstance(l, FakeTensor) for _, ls in groups.values()
+           for l in ls):
+        # a dry-run's fake shards: one array a group (a few ops a bound,
+        # not a few a leaf); real keys are not copied again
+        chunked = [(reduce, [rows(torch.cat([keys(l) for l in ls]))])
+                   for reduce, ls in groups.values()]
+    else:
+        chunked = [(reduce, [rows(keys(l)) for l in ls])
+                   for reduce, ls in groups.values()]
     k_hi, k_lo = k >> 16, k & 0xFFFF
 
-    def count_le_ge_k(t: torch.Tensor) -> torch.Tensor:
-        hi = torch.zeros((), dtype=torch.int32, device=device)
+    def ge_k(bounds) -> torch.Tensor:
+        """(len(bounds),) bool: at least k keys <= each bound."""
+        hi = torch.zeros(len(bounds), dtype=torch.int32, device=device)
         lo = torch.zeros_like(hi)
-        for ch in chunked:
-            c = (ch <= t).sum(1, dtype=torch.int32)          # (m,) < 2^21
-            leaf_lo = (c & 0xFFFF).sum(dtype=torch.int32)    # < m * 2^16
-            hi = hi + (c >> 16).sum(dtype=torch.int32) + (leaf_lo >> 16)
-            lo = lo + (leaf_lo & 0xFFFF)                     # carry per leaf
+        for reduce, chs in chunked:
+            pairs = []
+            for t in bounds:
+                g_hi = torch.zeros((), dtype=torch.int32, device=device)
+                g_lo = torch.zeros_like(g_hi)
+                for ch in chs:
+                    c = (ch <= t).sum(1, dtype=torch.int32)  # (m,) < 2^21
+                    leaf_lo = (c & 0xFFFF).sum(dtype=torch.int32)
+                    g_hi = g_hi + (c >> 16).sum(dtype=torch.int32) \
+                        + (leaf_lo >> 16)
+                    g_lo = g_lo + (leaf_lo & 0xFFFF)         # carry per leaf
+                pairs.append((g_hi, g_lo))
+            g_hi = torch.stack([h for h, _ in pairs])
+            g_lo = torch.stack([l for _, l in pairs])
+            if reduce is not None:
+                # the group's pairs, carried, summed over its shards'
+                # ranks: lo < 2^16 x ranks
+                both = reduce(torch.stack([g_hi + (g_lo >> 16),
+                                           g_lo & 0xFFFF]))
+                g_hi, g_lo = both[0], both[1]
+            hi, lo = hi + g_hi, lo + g_lo
         hi = hi + (lo >> 16)
         lo = lo & 0xFFFF
         return (hi > k_hi) | ((hi == k_hi) & (lo >= k_lo))
@@ -159,7 +199,7 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
         hi = torch.full((), _U32, dtype=torch.int64, device=device)
         for _ in range(passes):
             mid = lo + (hi - lo) // 2
-            ge = count_le_ge_k(mid)
+            ge = ge_k([mid])[0]
             lo, hi = (torch.where(ge, lo, (mid + 1) & _U32),
                       torch.where(ge, mid, hi))
         return answer(lo)
@@ -173,12 +213,34 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
     prefix = torch.zeros((), dtype=torch.int64, device=device)
     for i in range(32 // b):
         shift = 32 - b * (i + 1)
-        ge = torch.stack([
-            count_le_ge_k((prefix + (((j + 1) << shift) & _U32) - 1) & _U32)
-            for j in range(nb)])                             # (nb,) bool
+        ge = ge_k([(prefix + (((j + 1) << shift) & _U32) - 1) & _U32
+                   for j in range(nb)])                      # (nb,) bool
         digit = (~ge).sum()                                  # first ge bucket
         prefix = (prefix | (digit << shift)) & _U32
     return answer(prefix)
+
+
+def _split_dims(leaf: torch.Tensor):
+    """(the mesh dims a DTensor leaf is split over, its local shard, a
+    function summing a tensor over those dims' ranks); a plain tensor, or
+    a DTensor whole on every rank, is ((), itself, None)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(leaf, DTensor):
+        return (), leaf, None
+    mesh = leaf.device_mesh
+    if any(p.is_partial() for p in leaf.placements):
+        raise ValueError("a leaf with pending partial sums: redistribute it "
+                         "to its parameter's placements first")
+    dims = tuple(i for i, p in enumerate(leaf.placements) if p.is_shard())
+    if not dims:
+        return (), leaf.to_local(), None
+    place = [Partial() if i in dims else Replicate()
+             for i in range(mesh.ndim)]
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(t, mesh, place,
+                                  run_check=False).full_tensor()
+    return (id(mesh), dims), leaf.to_local(), reduce
 
 
 def _grouped_channel_job(values: torch.Tensor, keys: torch.Tensor,

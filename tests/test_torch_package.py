@@ -53,7 +53,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.checkpoint.checkpoint, repro_torch.pytree, "
             "repro_torch.data.pipeline, "
             "repro_torch.distributed.fault_tolerance, "
-            "repro_torch.launch.steps, repro_torch.launch.train\n"
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.step_analysis, "
+            "repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
@@ -93,7 +96,9 @@ def test_layout_mirrors_the_jax_package():
                 "configs/__init__.py", "optim/quantile_ops.py",
                 "optim/adamw.py", "checkpoint/checkpoint.py",
                 "data/pipeline.py", "distributed/fault_tolerance.py",
-                "launch/steps.py", "launch/train.py",
+                "launch/steps.py", "launch/train.py", "launch/mesh.py",
+                "launch/sharding.py", "launch/step_analysis.py",
+                "launch/dryrun.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/dispatch.py",
                 "kernels/fused_select.py", "kernels/partition_count.py",
                 "kernels/band_count.py", "kernels/segmented_select.py",
@@ -125,8 +130,11 @@ def test_layout_mirrors_the_jax_package():
     assert {"save_checkpoint", "restore_checkpoint",
             "restore_checkpoint_flat"} <= set(repro_torch.checkpoint.__all__)
     assert {"IngestPool", "StreamingCalibrator", "calibrate_int8_scale",
-            "calibrate_int8_scales", "generate"} <= set(
-                repro_torch.launch.__all__)
+            "calibrate_int8_scales", "generate", "fake_world",
+            "make_production_mesh", "make_mesh", "batch_axes", "param_spec",
+            "param_shardings", "opt_shardings", "batch_spec",
+            "cache_shardings", "placements", "distribute_params",
+            "input_specs", "analyze"} <= set(repro_torch.launch.__all__)
 
 
 def test_host_data_goes_to_cuda_unless_cpu_is_asked(monkeypatch):
