@@ -191,23 +191,24 @@
    The six kernels' launch counts are zeroed before this phase and read
    after it (``train_launches``; the training path launches none).
 12. The dry-run tooling (``dryrun_path``): (a) ``python -m
-   repro_torch.launch.dryrun`` in a subprocess, one fake world of 512 ranks
-   on fake "cuda" tensors (nothing allocated), on DRYRUN_CELLS at full
-   width (decode, train, a sub-quadratic long decode on the 2 x 16 x 16
-   mesh and a moe prefill): every record ``ok``, its per-chip FLOPs,
-   bytes, collective bytes and counts, dominant roofline term and trace
-   seconds printed; (b) a real sharded step on the card, an NCCL world of
-   one rank and a (1, 1) ("data", "model") mesh: stablelm-1.6b's train
-   step at 11's 8 x 2048 with ``distribute_params`` and granite-8b's
-   prefill and one decode step at 9's shapes, each against the plain step
-   on the same weights (loss, every gradient, logits: equal bits or the
-   gap, held to the CPU tests' bf16 tolerances: loss 1e-4, gradients 3e-2
-   of max |g| (the embedding's reported, not gated: the plain step adds
-   its occurrences in bf16), logits 1e-3 of max |logit|), the sharded
-   clip threshold the
-   exact quantile of its own |g| (two direct counts, as 11), and both
-   step times, plain and sharded (DTensor's host cost), beside the card's
-   name and power limit.  No kernel runs on this path.
+   repro_torch.launch.dryrun --jobs 5`` in a subprocess on fake "cuda"
+   tensors (nothing allocated), each of DRYRUN_CELLS at full width in a
+   process and fake world of its own (decode, train, a sub-quadratic long
+   decode on the 2 x 16 x 16 mesh, a moe decode and a sliding-window
+   prefill), traced on the host's other cores while (b) runs: every
+   record ``ok`` and within the card's 80 GB, its per-chip FLOPs, bytes,
+   collective bytes and counts, dominant roofline term and trace seconds
+   printed; (b) a real sharded step on the card, an NCCL world of one
+   rank and a (1, 1) ("data", "model") mesh: stablelm-1.6b's train step at
+   11's 8 x 2048 with ``distribute_params`` and granite-8b's prefill and
+   one decode step at 9's shapes, each against the plain step on the same
+   weights (loss, every gradient, logits: equal bits or the gap, held to
+   the CPU tests' bf16 tolerances: loss 1e-4, gradients 3e-2 of max |g|,
+   logits 1e-3 of max |logit|), both steps' embedding gradients also held
+   to its f32 sum (3e-2), the sharded clip threshold the exact quantile
+   of its own |g| (two direct counts, as 11), and both step times, plain
+   and sharded (DTensor's host cost), beside the card's name and power
+   limit.  No kernel runs on this path.
 13. Times each kernel at its path's shapes beside its bound (and the share
    of the peak memory rate it reaches), its plain version and the PyTorch
    calls that compute the same function, and prints one ``kernels`` JSON
@@ -227,6 +228,7 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -253,12 +255,13 @@ FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 # the dry-run cells of phase 12 (arch, shape, mesh): decode, train, a long
-# decode on 2 x 16 x 16, a moe decode and an ssm prefill
+# decode on 2 x 16 x 16, a moe decode and a sliding-window prefill (the
+# cheapest full-width prefill to trace)
 DRYRUN_CELLS = (("granite-8b", "decode_32k", "pod1"),
                 ("stablelm-1.6b", "train_4k", "pod1"),
                 ("mamba2-1.3b", "long_500k", "pod2"),
                 ("olmoe-1b-7b", "decode_32k", "pod1"),
-                ("mamba2-1.3b", "prefill_32k", "pod1"))
+                ("h2o-danube-1.8b", "prefill_32k", "pod1"))
 DRYRUN_LIMIT_S = 600
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
@@ -3097,19 +3100,37 @@ def train_path(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _dryrun_cells() -> dict:
-    """(a): the dry-run CLI on DRYRUN_CELLS in one subprocess; each
-    record's per-chip figures."""
-    with tempfile.TemporaryDirectory() as out:
+@contextlib.contextmanager
+def _dryrun_cells():
+    """(a): the dry-run CLI on DRYRUN_CELLS, started on entry (one
+    subprocess, which traces each cell in a process of its own, all at
+    once, on the host's other cores) and read on exit into the yielded
+    dict: each record's per-chip figures.  A cell fails unless ``ok`` and
+    within the card's memory."""
+    result = {}
+    with tempfile.TemporaryDirectory() as out, \
+            tempfile.TemporaryFile("w+") as log:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
-               out, "--force"]
+               out, "--force", "--jobs", str(len(DRYRUN_CELLS))]
         for cell in DRYRUN_CELLS:
             cmd += ["--cell", ":".join(cell)]
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=DRYRUN_LIMIT_S)
+        # a session of its own, so that the cells' processes stop with it
+        proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            yield result
+            proc.wait(timeout=max(1.0, DRYRUN_LIMIT_S
+                                  - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
         wall = time.perf_counter() - t0
+        log.seek(0)
+        output = log.read()
         records = {}
         for arch, shape, mesh in DRYRUN_CELLS:
             path = os.path.join(out, f"{arch}__{shape}__{mesh}.json")
@@ -3124,12 +3145,13 @@ def _dryrun_cells() -> dict:
                     "memory_analysis")}
             records[f"{arch}:{shape}:{mesh}"]["dominant"] = (
                 rec.get("roofline") or {}).get("dominant")
-    bad = [c for c, r in records.items() if r["status"] != "ok"]
+    bad = [c for c, r in records.items() if r["status"] != "ok"
+           or r["memory_analysis"]["exceeds_card_memory"]]
     if proc.returncode != 0 or bad:
         raise AssertionError(f"dryrun: exit {proc.returncode}, cells {bad}: "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    return {"cells": records, "subprocess_s": wall,
-            "trace_s": sum(r["trace_s"] for r in records.values())}
+                             f"{output[-4000:]}")
+    result.update(cells=records, subprocess_s=wall,
+                  trace_s=sum(r["trace_s"] for r in records.values()))
 
 
 def _grad_gaps(got, want, names) -> dict:
@@ -3139,18 +3161,49 @@ def _grad_gaps(got, want, names) -> dict:
             for n, g, w in zip(names, got, want)}
 
 
+@contextlib.contextmanager
+def _embedding_output_grads(model, store: list):
+    """While open, the gradient that reaches the embedding's output (dL/dx,
+    (B, S, D)) of every ``model._embed`` call is appended to ``store`` as
+    a plain tensor."""
+    from repro_torch.models import layers
+    embed = model._embed
+
+    def hooked(table, tokens):
+        x = embed(table, tokens)
+        if x.requires_grad:
+            x.register_hook(lambda g: store.append(layers.whole(g)))
+        return x
+    model._embed = hooked
+    try:
+        yield store
+    finally:
+        model._embed = embed
+
+
+def _f32_embed_grad(tokens: torch.Tensor, dx: torch.Tensor,
+                    vocab: int) -> torch.Tensor:
+    """The embedding table's gradient summed in f32: each position's dL/dx
+    (in f32) added into its token's row (``index_add_``), no rounding to
+    the table's dtype.  The witness both training steps' embedding
+    gradients are held to."""
+    D = dx.shape[-1]
+    return torch.zeros((vocab, D), dtype=torch.float32,
+                       device=dx.device).index_add_(
+        0, tokens.reshape(-1).long(), dx.reshape(-1, D).float())
+
+
 def _train_grads(params, cfg, batch, mesh):
     """(loss, the gradients as plain tensors, the exact TRAIN_Q-quantile
-    of |g| by the radix route) of one forward and backward, plain or on
-    ``mesh``."""
+    of |g| by the radix route, the embedding output's gradient dL/dx) of
+    one forward and backward, plain or on ``mesh``."""
     from repro_torch import pytree
     from repro_torch.launch import steps
     from repro_torch.models import layers, model
     from repro_torch.optim.quantile_ops import pytree_radix_quantile
     tree = model.param_tree(params)
     params.requires_grad_(True)
-    with (layers.on_mesh(mesh) if mesh is not None
-          else contextlib.nullcontext()):
+    with steps.on_mesh(mesh), _embedding_output_grads(model, []) as dx:
         loss, _ = model.forward_loss(params, batch, cfg)
         loss.backward()
         grads = [steps.placed_grad(p) for p in pytree.leaves(tree)]
@@ -3159,7 +3212,8 @@ def _train_grads(params, cfg, batch, mesh):
         params.requires_grad_(False)
         thr = pytree_radix_quantile(grads, TRAIN_Q)
     local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
-    return float(layers.whole(loss).detach()), local, thr
+    (dx,) = dx
+    return float(layers.whole(loss).detach()), local, thr, dx
 
 
 def _second_s(fn) -> tuple:
@@ -3169,8 +3223,9 @@ def _second_s(fn) -> tuple:
 
 
 # the sharded steps' gates on bf16 weights: ``test_torch_train.py``'s bf16
-# tolerances (loss 1e-4, each gradient but the embedding's 3e-2 of its
-# leaf's max |g|), the logits 1e-3 of max |logit| (about a bf16 half-ulp)
+# tolerances (loss 1e-4, each gradient 3e-2 of its leaf's max |g|, the
+# embedding's also against its f32 sum), the logits 1e-3 of max |logit|
+# (about a bf16 half-ulp)
 SHARDED_LOSS_TOL, SHARDED_GRAD_TOL, SHARDED_LOGIT_TOL = 1e-4, 3e-2, 1e-3
 
 
@@ -3179,7 +3234,7 @@ def _sharded_train(mesh, seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.launch import sharding as shd, steps
-    from repro_torch.models import model
+    from repro_torch.models import layers, model
     from repro_torch.optim import AdamWConfig, adamw_init
 
     cfg = get_config(TRAIN_ARCH)
@@ -3189,7 +3244,19 @@ def _sharded_train(mesh, seed: int) -> dict:
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in pipe.batch_at(0).items()}
     opt_cfg = AdamWConfig(quantile_clip=TRAIN_Q)
-    loss_p, grads_p, thr_p = _train_grads(params, cfg, batch, None)
+    loss_p, grads_p, thr_p, dx_p = _train_grads(params, cfg, batch, None)
+    names = pytree.paths(model.param_tree(params))
+    at = names.index("['embed']")
+    # the embedding's gradient against its f32 sum; and what the index's
+    # backward (``table[tokens]``: ``index_put_`` with accumulate, in the
+    # table's dtype) makes of the same dL/dx
+    witness_p = _f32_embed_grad(batch["tokens"], dx_p, cfg.vocab)
+    embed_f32_gap_p = _rel_err(grads_p[at].float(), witness_p)
+    index_put = torch.zeros_like(grads_p[at]).index_put_(
+        (batch["tokens"].reshape(-1).long(),),
+        dx_p.reshape(-1, dx_p.shape[-1]), accumulate=True)
+    index_put_f32_gap = _rel_err(index_put.float(), witness_p)
+    del dx_p, witness_p, index_put
     tree = model.param_tree(params)
     saved = [w.detach().clone() for w in pytree.leaves(tree)]
     step = steps.make_train_step(cfg, opt_cfg)
@@ -3206,15 +3273,14 @@ def _sharded_train(mesh, seed: int) -> dict:
     shd.distribute_params(params, mesh)
     batch = steps.distribute_inputs((batch,), (shd.placements_tree(
         mesh, shd.batch_spec(mesh, batch, TRAIN_B)),), mesh)[0]
-    loss_s, grads_s, thr_s = _train_grads(params, mcfg, batch, mesh)
+    loss_s, grads_s, thr_s, dx_s = _train_grads(params, mcfg, batch, mesh)
     _check_exact_quantile("sharded train step", grads_s, thr_s, TRAIN_Q)
-    # the embedding's gradient is a sum of every occurrence of a token
-    # (Zipf: thousands for the common ones), which the plain step adds
-    # in bf16 (``index_put_``) and the sharded one through ``F.embedding``'s
-    # backward: reported, not gated
-    gaps = _grad_gaps(grads_s, grads_p,
-                      pytree.paths(model.param_tree(params)))
-    embed_gap = gaps.pop("['embed']")
+    # the embedding's gradient sums every occurrence of a token (Zipf:
+    # thousands for the common ones): both steps' are held to its f32 sum
+    embed_f32_gap_s = _rel_err(grads_s[at].float(), _f32_embed_grad(
+        layers.whole(batch["tokens"]), dx_s, cfg.vocab))
+    del dx_s
+    gaps = _grad_gaps(grads_s, grads_p, names)
     worst = max(gaps, key=gaps.get)
     gap = gaps[worst]
     same = all(torch.equal(a, b) for a, b in zip(grads_s, grads_p))
@@ -3231,13 +3297,18 @@ def _sharded_train(mesh, seed: int) -> dict:
            "loss_gap": abs(loss_s - loss_p), "grads_bits_equal": same,
            "grad_gap_share_of_max": gap, "grad_gap_worst_leaf": worst,
            "leaves_bits_equal": sum(g == 0.0 for g in gaps.values()),
-           "leaves": len(gaps) + 1,
-           "embed_grad_gap_share_of_max": embed_gap,
+           "leaves": len(gaps),
+           "embed_grad_gap_share_of_max": gaps["['embed']"],
+           "embed_grad_f32_gap_plain": embed_f32_gap_p,
+           "embed_grad_f32_gap_sharded": embed_f32_gap_s,
+           "index_put_f32_gap": index_put_f32_gap,
            "clip_threshold_plain": float(thr_p),
            "clip_threshold_sharded": float(thr_s),
            "step_s_plain": plain_s, "step_s_sharded": sharded_s}
     if not (math.isfinite(loss_s) and out["loss_gap"] <= SHARDED_LOSS_TOL
-            and gap <= SHARDED_GRAD_TOL):
+            and gap <= SHARDED_GRAD_TOL
+            and embed_f32_gap_p <= SHARDED_GRAD_TOL
+            and embed_f32_gap_s <= SHARDED_GRAD_TOL):
         raise AssertionError(f"sharded train step: {out}")
     return out
 
@@ -3309,11 +3380,13 @@ def _sharded_steps(seed: int) -> dict:
 
 
 def dryrun_path(seed: int) -> dict:
-    """12: the dry-run CLI's cells (a), then the sharded steps on the card
-    (b), with the card's name and power limit."""
+    """12: the dry-run CLI's cells (a), traced on the host while the
+    sharded steps run on the card (b), with the card's name and power
+    limit."""
     t0 = time.perf_counter()
-    result = {"dryrun": _dryrun_cells()}
-    result.update(_sharded_steps(seed))
+    with _dryrun_cells() as cells:
+        result = _sharded_steps(seed)
+    result["dryrun"] = cells
     result["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -15,7 +15,10 @@ as its own process: a process holds one world.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
       --shape all --mesh both --out experiments/dryrun_torch [--force] \\
-      [--device cpu] [--reduced] [--cell ARCH:SHAPE:MESH ...]
+      [--device cpu] [--reduced] [--cell ARCH:SHAPE:MESH ...] [--jobs N]
+
+``--jobs N`` traces each cell in a process of its own, N at once (a
+cell's trace is one host thread, and a process holds one world).
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ import argparse
 import functools
 import json
 import os
+import subprocess
+import sys
+import tempfile
 import time
 import traceback
 
@@ -75,6 +81,10 @@ def _local_bytes(tree) -> int:
     return total
 
 
+def _tag(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
              force: bool = False, device="cuda", verbose: bool = True,
              reduced: bool = False) -> dict:
@@ -85,7 +95,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
     2 x 2 x 2) mesh at ``REDUCED_SHAPES``."""
     global _WORLD
     device = require_device(device)
-    tag = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+    tag = _tag(arch, shape, multi_pod)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, tag + ".json")
     if os.path.exists(path) and not force:
@@ -151,13 +161,18 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
                 "output_bytes": out_bytes,
                 "temp_bytes": ana["peak_bytes"],
                 "generated_code_bytes": None,
+                # arguments and the step's peak together past the card's
+                # memory: the cell would not run on an H100 as planned
+                "exceeds_card_memory":
+                    arg_bytes + ana["peak_bytes"] > rf.HBM_BYTES,
             },
         )
         if verbose:
             print(f"[ok] {tag}: trace {t_trace:.0f}s  "
                   f"flops/chip {flops:.3g}  bytes/chip {bytes_acc:.3g}  "
-                  f"coll/chip {coll_bytes:.3g}  dominant {terms['dominant']}",
-                  flush=True)
+                  f"coll/chip {coll_bytes:.3g}  dominant {terms['dominant']}"
+                  + ("  EXCEEDS CARD MEMORY" if rec["memory_analysis"][
+                      "exceeds_card_memory"] else ""), flush=True)
     except Exception as e:  # a failing cell is a bug; record it loudly
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -182,6 +197,8 @@ def main(argv=None) -> None:
                     metavar="ARCH:SHAPE:MESH",
                     help="one cell (pod1 or pod2), in place of the "
                          "--arch x --shape x --mesh grid; repeatable")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="trace the cells in this many processes at once")
     args = ap.parse_args(argv)
 
     archs = sorted(REGISTRY) if args.arch == "all" else [args.arch]
@@ -192,10 +209,14 @@ def main(argv=None) -> None:
         cells = [(a, s, m == "pod2") for a, s, m in
                  (c.split(":") for c in args.cell)]
 
+    if args.jobs > 1 and len(cells) > 1:
+        records = _run_parallel(cells, args)
+    else:
+        records = [run_cell(arch, shape, mp, args.out, force=args.force,
+                            device=args.device, reduced=args.reduced)
+                   for arch, shape, mp in cells]
     n_ok = n_skip = n_err = 0
-    for arch, shape, mp in cells:
-        rec = run_cell(arch, shape, mp, args.out, force=args.force,
-                       device=args.device, reduced=args.reduced)
+    for rec in records:
         st = rec["status"]
         n_ok += st == "ok"
         n_skip += st == "skipped"
@@ -203,6 +224,49 @@ def main(argv=None) -> None:
     print(f"\ndry-run summary: ok={n_ok} skipped={n_skip} error={n_err}")
     if n_err:
         raise SystemExit(1)
+
+
+def _run_parallel(cells, args) -> list:
+    """The cells' records, each traced by a child process of this CLI, at
+    most ``args.jobs`` at once, the slowest shapes (prefill, then train)
+    started first; a cell whose record is missing afterwards counts as an
+    error."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+           args.out, "--device", args.device]
+    cmd += ["--force"] * args.force + ["--reduced"] * args.reduced
+    first = {"prefill_32k": 0, "train_4k": 1}
+    queue = sorted(cells, key=lambda c: first.get(c[1], 2))
+    running = []
+    while queue or running:
+        while queue and len(running) < args.jobs:
+            a, s, mp = queue.pop(0)
+            log = tempfile.TemporaryFile("w+")
+            running.append((subprocess.Popen(
+                cmd + ["--cell", f"{a}:{s}:{'pod2' if mp else 'pod1'}"],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        done = next((r for r in running if r[0].poll() is not None), None)
+        if done is None:
+            time.sleep(0.2)
+            continue
+        running.remove(done)
+        # the child's cell line; all of its output where it failed
+        proc, log = done
+        log.seek(0)
+        out = log.readlines()
+        log.close()
+        if not proc.returncode:
+            out = [ln for ln in out if ln.startswith(("[ok]", "[ERROR]"))]
+        print("".join(out), end="", flush=True)
+    records = []
+    for cell in cells:
+        path = os.path.join(args.out, _tag(*cell) + ".json")
+        if os.path.exists(path):
+            with open(path) as f:
+                records.append(json.load(f))
+        else:
+            print(f"[ERROR] {_tag(*cell)}: no record", flush=True)
+            records.append({"status": "error", "error": "no record"})
+    return records
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ PEAK_FLOPS = 989e12          # H100 SXM, dense bf16 on the tensor cores
 PEAK_FLOPS_F32 = 67e12       # H100 SXM, f32 without the tensor cores
 HBM_BW = 3.35e12             # H100 SXM, HBM3 bytes/s
 LINK_BW = 450e9              # H100 SXM, NVLink 4 bytes/s a direction
+HBM_BYTES = 80e9             # H100 SXM, device memory
 
 # Peak memory rate by platform, bytes/s.  cpu is a placeholder DDR figure:
 # CPU numbers compare kernels with each other, never with a peak.

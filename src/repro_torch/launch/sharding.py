@@ -27,6 +27,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..dtensor import from_shards, placements
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWState
 from .mesh import axis_sizes, batch_axes
@@ -215,23 +216,6 @@ def cache_shardings(mesh, cache_tree, cfg: ModelConfig, batch_size: int,
 # ---------------------------------------------------------------------------
 
 
-def placements(spec: Sequence, mesh) -> tuple:
-    """The DTensor placements of ``spec`` on ``mesh``: Shard(d) on each
-    mesh dimension that names tensor dimension d, Replicate elsewhere.  A
-    tensor dimension split over several axes is split over them in mesh
-    order, the first the major one, as the reference's tuple entries."""
-    from torch.distributed.tensor import Replicate, Shard
-    out = []
-    for name in mesh.mesh_dim_names:
-        dims = [d for d, entry in enumerate(spec)
-                if entry == name or (isinstance(entry, tuple)
-                                     and name in entry)]
-        if len(dims) > 1:
-            raise ValueError(f"axis {name!r} shards dims {dims} of {spec}")
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
-
-
 def placements_tree(mesh, spec_tree):
     """A tree of specs as a tree of DTensor placements."""
     return map_with_path(lambda _, spec: placements(spec, mesh), spec_tree)
@@ -251,36 +235,29 @@ def local_shape(shape: Sequence[int], mesh, place: Sequence) -> Tuple:
     return tuple(out)
 
 
-def _contiguous_stride(shape: Sequence[int]) -> Tuple:
-    stride, acc = [], 1
-    for n in reversed(shape):
-        stride.append(acc)
-        acc *= max(1, n)
-    return tuple(reversed(stride))
-
-
 def sharded_full(shape: Sequence[int], value, dtype, mesh, place: Sequence,
                  device=None):
     """A DTensor of global ``shape`` filled with ``value``, placed by
     ``place``, each rank filling its own shard (no communication).  Under
     a FakeTensorMode the shard is fake and nothing is allocated."""
-    from torch.distributed.tensor import DTensor
     local = torch.full(local_shape(shape, mesh, place), value, dtype=dtype,
                        device=device or mesh.device_type)
-    return DTensor.from_local(local, mesh, tuple(place), run_check=False,
-                              shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+    return from_shards(local, mesh, place, shape)
 
 
 def sharded_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                   enc_len: int, mesh, dtype=None, decode: bool = False):
     """``model.init_cache``'s cache as DTensors placed by
     ``cache_shardings`` (the sentinel positions and the zeros made on each
-    rank)."""
+    rank).  The tree's shapes come from ``init_cache`` on the meta device
+    outside every dispatch mode: inside a step they are not the step's
+    work, and a dry-run's analysis would count their global bytes."""
+    from torch.utils._python_dispatch import _disable_current_modes
     from ..models.layers import UNWRITTEN
     from ..models.model import init_cache
-    abstract = init_cache(cfg, batch_size, cache_len, enc_len=enc_len,
-                          dtype=dtype, device="meta")
+    with _disable_current_modes():
+        abstract = init_cache(cfg, batch_size, cache_len, enc_len=enc_len,
+                              dtype=dtype, device="meta")
     specs = cache_shardings(mesh, abstract, cfg, batch_size, decode)
     place = placements_tree(mesh, specs)
     return zip_map(lambda t, pl: sharded_full(
@@ -309,9 +286,7 @@ def distribute_params(params, mesh):
                 if not isinstance(local, FakeTensor):
                     raise RuntimeError("abstract parameters are distributed "
                                        "under a FakeTensorMode only")
-                d = DTensor.from_local(local, mesh, place, run_check=False,
-                                       shape=w.shape,
-                                       stride=_contiguous_stride(w.shape))
+                d = from_shards(local, mesh, place, w.shape)
             else:
                 d = distribute_tensor(w.detach(), mesh, place)
             pdict[name] = nn.Parameter(d, requires_grad=w.requires_grad)

@@ -24,8 +24,10 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
-from ..models import layers, model
+from ..dtensor import is_dtensor
+from ..models import model
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..pytree import leaves, tree_map
@@ -62,8 +64,12 @@ def mesh_cfg(cfg: ModelConfig, mesh, batch: int) -> ModelConfig:
 # ---------------------------------------------------------------------------
 
 
-def _on(mesh):
-    return layers.on_mesh(mesh) if mesh is not None else \
+def on_mesh(mesh):
+    """The context a step runs in on ``mesh``: a plain tensor meeting a
+    DTensor (positions, masks, rope angles) counts as replicated.  The
+    model's constraints (``layers.shard_act``, ``shard_heads``) place
+    DTensors on the mesh they carry.  No mesh: nothing."""
+    return implicit_replication() if mesh is not None else \
         contextlib.nullcontext()
 
 
@@ -72,7 +78,7 @@ def placed_grad(p: torch.Tensor) -> torch.Tensor:
     (a replicated weight's gradient comes back as a partial sum: this is
     the data-parallel all-reduce)."""
     g = p.grad
-    if layers._is_dtensor(g) and g.placements != p.placements:
+    if is_dtensor(g) and g.placements != p.placements:
         g = g.redistribute(p.device_mesh, p.placements)
     return g
 
@@ -85,9 +91,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None):
     metrics are the reference's (``loss``, ``ce``, ``aux``, ``tokens``,
     ``grad_norm`` and, where enabled, ``clip_threshold`` and
     ``compress_scale``), as tensors.  With ``mesh``, the step runs there
-    (``layers.on_mesh``) on DTensor parameters, state and batch."""
+    (``on_mesh``) on DTensor parameters, state and batch."""
     def train_step(params: model.Transformer, opt_state, batch):
-        with _on(mesh):
+        with on_mesh(mesh):
             tree = model.param_tree(params)
             params.requires_grad_(True)
             loss, metrics = model.forward_loss(params, batch, cfg)
@@ -105,15 +111,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None):
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, mesh=None):
+    """``prefill_step(params, batch) -> (logits, cache)``.  With ``mesh``,
+    the cache it fills is made there, placed as the reference's prefill
+    cache (``sharding.sharded_cache``; an ssm cache is the scan's final
+    states and takes the step's placements)."""
     def prefill_step(params, batch):
-        with _on(mesh):
-            return model.prefill(params, batch, cfg, cache_len=cache_len)
+        with on_mesh(mesh):
+            cache = None
+            if mesh is not None and cfg.family != "ssm":
+                B, S = batch["tokens"].shape
+                enc_len = batch["frames"].shape[1] if cfg.is_encdec else 0
+                cache = shd.sharded_cache(cfg, B, max(cache_len, S),
+                                          enc_len, mesh)
+            return model.prefill(params, batch, cfg, cache_len=cache_len,
+                                 cache=cache)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
     def serve_step(params, token, cache, cache_len):
-        with _on(mesh):
+        with on_mesh(mesh):
             return model.decode_step(params, token, cache, cache_len, cfg)
     return serve_step
 
@@ -215,7 +232,7 @@ def redistribute_tree(tree, place_tree, mesh):
     """Each DTensor leaf of ``tree`` redistributed to its placements in
     ``place_tree`` (a tree of the same shape)."""
     def one(t, pl):
-        if layers._is_dtensor(t) and tuple(t.placements) != tuple(pl):
+        if is_dtensor(t) and tuple(t.placements) != tuple(pl):
             return t.redistribute(mesh, pl)
         return t
     return shd.zip_map(one, tree, place_tree)

@@ -14,12 +14,13 @@ softmaxes over its raw scores, it does not give NaN).
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..dtensor import from_shards, meta_if_fake, placements
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -27,50 +28,27 @@ UNWRITTEN = 2 ** 30       # cache position of a slot never written
 
 
 # ---------------------------------------------------------------------------
-# distribution: the mesh the step runs on, and the reference's sharding
-# constraints as DTensor redistributions
+# distribution: the reference's sharding constraints as DTensor
+# redistributions on the mesh a DTensor carries (the step builders place
+# the parameters and inputs; ``ModelConfig`` keeps the reference's fields
+# and names no mesh)
 # ---------------------------------------------------------------------------
-
-_MESH = None              # the DeviceMesh of ``on_mesh``, else None
-
-
-@contextlib.contextmanager
-def on_mesh(mesh):
-    """Run the model on ``mesh``: ``shard_act`` and ``shard_heads`` place
-    DTensors there, and a plain tensor meeting a DTensor (positions, masks,
-    rope angles) counts as replicated.  The step builders enter it; the
-    ``ModelConfig`` keeps the reference's fields and names no mesh."""
-    from torch.distributed.tensor.experimental import implicit_replication
-    global _MESH
-    prev, _MESH = _MESH, mesh
-    try:
-        with implicit_replication():
-            yield mesh
-    finally:
-        _MESH = prev
-
-
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
 
 
 def _constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
-    """``x`` redistributed to ``spec`` on the current mesh (a plain tensor,
-    or no mesh, passes through)."""
-    if _MESH is None or not _is_dtensor(x):
+    """``x`` redistributed to ``spec`` on its mesh (a plain tensor passes
+    through)."""
+    if not isinstance(x, DTensor):
         return x
-    from ..launch.sharding import placements
-    return x.redistribute(_MESH, placements(spec, _MESH))
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 def gather_dims(x: torch.Tensor, dims: Tuple[int, ...] = ()) -> torch.Tensor:
     """A DTensor with dims ``dims`` gathered whole and its pending partial
     sums reduced (with no dims: the sums alone, so that an indexing op
     after it sees whole values); a plain tensor as it is."""
-    if not _is_dtensor(x):
+    if not isinstance(x, DTensor):
         return x
-    from torch.distributed.tensor import Replicate
     place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim in dims)
              else p for p in x.placements]
     return x.redistribute(x.device_mesh, place)
@@ -92,16 +70,15 @@ def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
     has no sharding rule for a DTensor split along dim 1 (a decode
     cache's sequence): each rank writes the slots its shard holds and
     keeps the rest, with no communication (one slot a call)."""
-    if not _is_dtensor(dst):
+    if not isinstance(dst, DTensor):
         dst.index_copy_(1, idx, src.to(dst.dtype))
         return
-    from torch.distributed.tensor import DTensor, Replicate
     if idx.numel() != 1:
         raise ValueError("a sharded cache takes one slot a write")
     mesh = dst.device_mesh
     place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == 1)
              else p for p in dst.placements]
-    if not _is_dtensor(src):
+    if not isinstance(src, DTensor):
         src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
                                  run_check=False)
     local, new = dst.to_local(), src.redistribute(mesh, place).to_local()
@@ -128,7 +105,7 @@ def heads_view(t: torch.Tensor, *shape: int) -> torch.Tensor:
     them back.  A DTensor whose dim 2 is split into pieces that do not
     divide the head count (12 or 56 heads, or 8 KV heads, over 16) is
     gathered there first: DTensor cannot view uneven head shards."""
-    if _is_dtensor(t):
+    if isinstance(t, DTensor):
         heads = shape[2] if len(shape) > t.ndim else t.shape[2]
         n = 1
         for i, p in enumerate(t.placements):
@@ -137,30 +114,25 @@ def heads_view(t: torch.Tensor, *shape: int) -> torch.Tensor:
         if heads % n:
             # the view on each rank's shard (dims 0 and 1 keep theirs), so
             # that its backward views the gradient locally too
-            from torch.distributed.tensor import DTensor
             t = gather_dims(t, (2,))
             local = t.to_local()
             local = local.reshape(*local.shape[:2], *shape[2:])
-            return DTensor.from_local(
-                local, t.device_mesh, t.placements, run_check=False,
-                shape=torch.Size(shape),
-                stride=torch.empty(shape, device="meta").stride())
+            return from_shards(local, t.device_mesh, t.placements, shape)
     return t.reshape(*shape)
 
 
 def whole(x: torch.Tensor) -> torch.Tensor:
     """A DTensor gathered whole onto every rank, as a plain tensor (for an
     op without a sharding rule); a plain tensor as it is."""
-    return x.full_tensor() if _is_dtensor(x) else x
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A plain tensor made on every rank as a replicated DTensor on
     ``like``'s mesh, where ``like`` is a DTensor (so that its gradient
     comes back plain); else ``t`` as it is."""
-    if not _is_dtensor(like) or _is_dtensor(t):
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
         return t
-    from torch.distributed.tensor import DTensor, Replicate
     return DTensor.from_local(t, like.device_mesh,
                               (Replicate(),) * like.device_mesh.ndim,
                               run_check=False)
@@ -375,7 +347,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Sq * Sk <= q_block * kv_block * 2:
         if bias is None:
             bias = _mask_bias(pos_q, pos_k, kv_len, causal, window)
-        if _is_dtensor(q):
+        if isinstance(q, DTensor):
             return _on_shards(_direct, (q, k, v), (bias,))
         return _direct(q, k, v, bias)
 
@@ -525,25 +497,6 @@ def _flash_bwd_impl(q, k, v, pos_q, pos_k, out, lse, dout, causal: bool,
     return dq[:, :Sq], dk[:, :Sk], dv[:, :Sk]
 
 
-def _meta_if_fake(fn, *args):
-    """``fn(*args)``; fake tensors (a dry-run's shards) go through it as
-    meta tensors and come back fake.  The blockwise loops are thousands
-    of ops a layer, and an op costs ~0.7 ms under FakeTensorMode against
-    ~25 us on meta; both run the same ops on the same shapes, so a
-    dispatch mode above them counts the same work."""
-    from torch._subclasses.fake_tensor import (FakeTensor,
-                                               unset_fake_temporarily)
-    fakes = [a for a in args if isinstance(a, FakeTensor)]
-    if not fakes:
-        return fn(*args)
-    device = fakes[0].device
-    with unset_fake_temporarily():
-        out = fn(*(torch.empty(a.shape, dtype=a.dtype, device="meta")
-                   if isinstance(a, FakeTensor) else a for a in args))
-    return tuple(torch.empty(o.shape, dtype=o.dtype, device=device)
-                 for o in out)
-
-
 class _Flash(torch.autograd.Function):
     """Blockwise attention whose backward recomputes the probabilities;
     positions get no gradient."""
@@ -551,7 +504,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, pos_q, pos_k, causal, window, q_block,
                 kv_block):
-        out, lse = _meta_if_fake(_flash_fwd_impl, q, k, v, pos_q, pos_k,
+        out, lse = meta_if_fake(_flash_fwd_impl, q, k, v, pos_q, pos_k,
                                  causal, window, q_block, kv_block)
         ctx.save_for_backward(q, k, v, pos_q, pos_k, out, lse)
         ctx.blocking = (causal, window, q_block, kv_block)
@@ -561,7 +514,7 @@ class _Flash(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, pos_q, pos_k, out, lse = ctx.saved_tensors
-        dq, dk, dv = _meta_if_fake(_flash_bwd_impl, q, k, v, pos_q, pos_k,
+        dq, dk, dv = meta_if_fake(_flash_bwd_impl, q, k, v, pos_q, pos_k,
                                    out, lse, dout, *ctx.blocking)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None, None)
@@ -586,9 +539,24 @@ def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
     def run(q, k, v, pos_q, pos_k):
         return _Flash.apply(q, k, v, pos_q, pos_k, causal, window, q_block,
                             kv_block)
-    if _is_dtensor(q):
+    if isinstance(q, DTensor):
         return _on_shards(run, (q, k, v), (pos_q, pos_k))
     return run(q, k, v, pos_q, pos_k)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a local
+    attention's q, k and v gradients come out of its einsums transposed,
+    and torch 2.11's DTensor views them flat in the projections'
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _on_shards(fn, heads: tuple, rows: tuple) -> torch.Tensor:
@@ -600,7 +568,6 @@ def _on_shards(fn, heads: tuple, rows: tuple) -> torch.Tensor:
     (the sequence, dh), and ``rows`` (positions, masks: (B, ...)) their
     batch shard; a plain tensor counts as replicated.  The result takes
     q's shape and placements."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     q = heads[0]
     mesh = q.device_mesh
     place = tuple(p if p.is_shard() and p.dim in (0, 2) else Replicate()
@@ -609,17 +576,14 @@ def _on_shards(fn, heads: tuple, rows: tuple) -> torch.Tensor:
                       else Replicate() for p in place)
 
     def local(t, pl):
-        if not _is_dtensor(t):
+        if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
                                    run_check=False)
         return t.redistribute(mesh, pl).to_local()
 
-    out = fn(*(local(t, place) for t in heads),
+    out = fn(*(_ContiguousGrad.apply(local(t, place)) for t in heads),
              *(local(t, row_place) for t in rows)).contiguous()
-    return DTensor.from_local(out, mesh, place, run_check=False,
-                              shape=q.shape,
-                              stride=torch.empty(q.shape,
-                                                 device="meta").stride())
+    return from_shards(out, mesh, place, q.shape)
 
 
 # ---------------------------------------------------------------------------

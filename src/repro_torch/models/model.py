@@ -68,6 +68,7 @@ from torch.utils import checkpoint as ckpt
 from . import layers, moe, ssm
 from .config import ModelConfig
 from ..core.select import as_device_tensor, require_device
+from ..dtensor import is_dtensor
 from ..pytree import leaves, paths, tree_map
 
 CE_CHUNK = 256
@@ -160,32 +161,25 @@ def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     ``layers.attn_block`` takes them; ``enc_out``, ``cross`` and
     ``cross_bias`` as ``_cross_attention`` takes them."""
     # on a mesh each branch's output takes the residual stream's placement
-    # before the add (Megatron-SP's reduce-scatter), so that its gradient
-    # comes back whole along the sequence (``_residual``)
+    # before the add (``layers.shard_act``: Megatron-SP's reduce-scatter of
+    # its partial sums), whose backward gathers the stream's gradient
+    # before the branch's matmuls flatten it (torch 2.11's DTensor cannot
+    # flatten a split sequence)
     h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
                              positions=positions, positions3=positions3,
                              cache=cache, kv_len=kv_len, angles=angles,
                              bias=bias, causal=causal)
-    x = x + _residual(h, cfg)
+    x = x + layers.shard_act(h, cfg)
     if "wq_c" in p:
-        x = x + _residual(_cross_attention(p, x, cfg, positions, enc_out,
-                                           cross, cross_bias), cfg)
+        x = x + layers.shard_act(_cross_attention(
+            p, x, cfg, positions, enc_out, cross, cross_bias), cfg)
     xn = layers.norm(x, p, cfg, "ln2")
     if cfg.family != "moe":
-        return x + _residual(layers.mlp_block(p, xn, cfg), cfg), None
+        return x + layers.shard_act(layers.mlp_block(p, xn, cfg), cfg), None
     y, aux = moe.moe_block(p, xn, cfg)
     if cfg.moe_dense_residual:
         y = y + layers.mlp_block(p, xn, cfg)
-    return x + _residual(y, cfg), aux
-
-
-def _residual(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """A block branch's output on the residual stream's placement
-    (``layers.shard_act``): a reduce-scatter of its partial sums, whose
-    backward gathers the stream's gradient before the branch's matmuls
-    flatten it (torch 2.11's DTensor cannot flatten a split sequence).
-    Identity off a mesh."""
-    return layers.shard_act(h, cfg)
+    return x + layers.shard_act(y, cfg), aux
 
 
 def _cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -209,7 +203,7 @@ def _cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                                  causal=False, xkv=enc_out)[0]
     B, S, _ = x.shape
     NH, dh = cfg.n_heads, cfg.d_head
-    q = layers.heads_view(xn @ cp["wq"], B, S, NH, dh)
+    q = layers.heads_view(layers.whole_seq(xn) @ cp["wq"], B, S, NH, dh)
     Sf = cross["k"].shape[1]
     pos_k = torch.arange(Sf, dtype=torch.int32, device=x.device).expand(B, Sf)
     o = layers.attention(q, cross["k"], cross["v"], positions, pos_k,
@@ -249,8 +243,10 @@ class MambaBlock(nn.Module):
         cfg = cfg or self.cfg
         xn = layers.rmsnorm(x, self.p["norm"])
         if cache is None:
-            return x + _residual(ssm.ssd_forward(self.p, xn, cfg), cfg)
-        return x + _residual(ssm.ssd_decode(self.p, xn, cfg, cache)[0], cfg)
+            return x + layers.shard_act(ssm.ssd_forward(self.p, xn, cfg),
+                                        cfg)
+        return x + layers.shard_act(ssm.ssd_decode(self.p, xn, cfg,
+                                                   cache)[0], cfg)
 
 
 class Transformer(nn.Module):
@@ -603,7 +599,7 @@ def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
     op has no sharding rule for it, and would gather the logits whole)
     takes the max, then the sum of exps, each a small partial
     reduction."""
-    if not layers._is_dtensor(logits):
+    if not is_dtensor(logits):
         return torch.logsumexp(logits, -1)
     m = layers.gather_dims(logits.detach().amax(-1, keepdim=True))
     return (m + torch.log(layers.gather_dims(
@@ -629,15 +625,18 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
     # split, and each chunk's positions whole, so that the logits come out
     # split by batch and vocab (not a partial sum of the whole logits)
     head = layers.gather_dims(head, (0,))
+    vocab = torch.arange(head.shape[-1], device=x.device)
     for c in range(nc):
         xb = layers.whole_seq(x[:, c * chunk:(c + 1) * chunk])
         lb = labels[:, c * chunk:(c + 1) * chunk]
         logits = (xb @ head).float()
         lse = _logsumexp(logits)
-        # a vocab-sharded gather is a masked partial sum: reduce it before
-        # the index drops its last dim
-        gold = layers.gather_dims(logits.gather(
-            -1, lb.clamp(min=0).long()[..., None]))[..., 0]
+        # the gold logit as a masked sum over the vocabulary, exact (one
+        # term is not zero); on a vocab-split DTensor each rank sums its
+        # own columns, then the partial sums are reduced (``gather``'s
+        # backward would build the whole chunk's logits on every rank)
+        hit = vocab == lb.clamp(min=0).long()[..., None]
+        gold = layers.gather_dims(torch.where(hit, logits, 0.0).sum(-1))
         valid = lb >= 0
         tot = tot + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum(dtype=torch.int32)
@@ -698,16 +697,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     "conv": (L, B, K - 1, d_inner + 2N)}; a hybrid: {"mamba": those at (G,
     every, ...), "shared": K/V and positions of G layers over
     ``cache_len``}; an encoder-decoder: {"self": that attention cache,
-    "cross": zeroed K/V (L, B, ``enc_len``, KV, dh)}.  On a mesh
-    (``layers.on_mesh``) the leaves are DTensors placed as
-    ``launch.sharding.cache_shardings`` places a prefill cache."""
+    "cross": zeroed K/V (L, B, ``enc_len``, KV, dh)}."""
     device = require_device(device)
-    if layers._MESH is not None and device.type != "meta":
-        # on a mesh (``layers.on_mesh``): DTensors placed as the
-        # reference's prefill cache shardings
-        from ..launch.sharding import sharded_cache
-        return sharded_cache(cfg, batch_size, cache_len, enc_len,
-                             layers._MESH, dtype)
     dt = dtype or _pdt(cfg)
     B = batch_size
     if cfg.family == "ssm":
@@ -732,15 +723,15 @@ def _layer_cache(cache: Dict[str, torch.Tensor], *i) -> dict:
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows of ``table`` at ``tokens``.  A DTensor table has its
-    vocabulary gathered (its d_model stays split) and goes through
-    ``F.embedding``, whose sharding rule covers its backward: torch 2.11's
-    DTensor fails on the index's backward (``index_put``), and the
-    vocab-split embedding's masked partial sums fail with split tokens."""
-    if layers._is_dtensor(table):
-        return torch.nn.functional.embedding(
-            tokens.long(), layers.gather_dims(table, (0,)))
-    return table[tokens.long()]
+    """The rows of ``table`` at ``tokens``, through ``F.embedding``: its
+    backward adds a token's occurrences in f32 on the card and rounds
+    once (an index's backward, ``index_put_``, rounds to the table's
+    dtype at every occurrence), and its sharding rule covers a DTensor
+    table, whose vocabulary is gathered first (its d_model stays split;
+    the vocab-split embedding's masked partial sums fail with split
+    tokens)."""
+    return torch.nn.functional.embedding(tokens.long(),
+                                         layers.gather_dims(table, (0,)))
 
 
 def _embed_inputs(top: Mapping[str, torch.Tensor],
@@ -776,7 +767,7 @@ def _prefill_mamba(block: MambaBlock, x: torch.Tensor, cfg: ModelConfig):
     state)) from the same chunk scan."""
     y, state = ssm.ssd_forward(block.p, layers.rmsnorm(x, block.p["norm"]),
                                cfg, return_state=True)
-    return x + _residual(y, cfg), state
+    return x + layers.shard_act(y, cfg), state
 
 
 def _stack_states(states: list) -> Dict[str, torch.Tensor]:
@@ -786,7 +777,8 @@ def _stack_states(states: list) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
-            cfg: ModelConfig, cache_len: int = 0) -> Tuple[torch.Tensor, Dict]:
+            cfg: ModelConfig, cache_len: int = 0,
+            cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt ``batch["tokens"]`` (B, S) (with a vision_stub
     config's ``patch_embeds``, an M-RoPE config's ``positions3`` where
     given, and an encoder-decoder's ``frames`` (B, Sf, D)): the last
@@ -795,11 +787,13 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
     an ssm cache takes the scan's final states and ignores it, as the
     reference's does.  An encoder-decoder runs the encoder once, and each
     decoder layer fills its cross cache with ``enc_out @ wk_c`` and
-    ``enc_out @ wv_c`` (in the cache's dtype), then attends over it."""
+    ``enc_out @ wv_c`` (in the cache's dtype), then attends over it.
+    ``cache``, where given, is the empty cache to fill in place of
+    ``init_cache``'s (a sharded step passes its DTensors)."""
     B, S = batch["tokens"].shape
     cache_len = max(cache_len, S)
     if cfg.is_encdec:
-        return _prefill_encdec(params, batch, cfg, cache_len)
+        return _prefill_encdec(params, batch, cfg, cache_len, cache)
     x, positions, positions3 = _embed_inputs(params.p, batch, cfg)
     shard = functools.partial(layers.shard_act, cfg=cfg)
     x = shard(x)
@@ -810,7 +804,8 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
             x = shard(x)
             states.append(state)
         return _logits(params, x[:, -1:], cfg), _stack_states(states)
-    cache = init_cache(cfg, B, cache_len, device=params.device)
+    if cache is None:
+        cache = init_cache(cfg, B, cache_len, device=params.device)
     if cfg.family == "hybrid":
         groups = []
         for g, group in enumerate(params.mamba):
@@ -835,16 +830,25 @@ def prefill(params: Transformer, batch: Mapping[str, torch.Tensor],
 
 
 def _prefill_encdec(params: Transformer, batch: Mapping[str, torch.Tensor],
-                    cfg: ModelConfig, cache_len: int):
-    enc_out = _run_encoder(params, batch["frames"], cfg, remat=False)
+                    cfg: ModelConfig, cache_len: int, cache: Optional[Dict]):
+    # the encoder's output whole along its sequence, as ``attn_block``
+    # takes a projection's input: the cross K/V's reshape would otherwise
+    # merge a split sequence
+    enc_out = layers.whole_seq(_run_encoder(params, batch["frames"], cfg,
+                                            remat=False))
     x, positions, _ = _embed_inputs(params.p, batch, cfg)
+    x = layers.shard_act(x, cfg)
     B, Sf = enc_out.shape[:2]
     KV, dh = cfg.n_kv_heads, cfg.d_head
-    cache = init_cache(cfg, B, cache_len, enc_len=Sf, device=params.device)
+    if cache is None:
+        cache = init_cache(cfg, B, cache_len, enc_len=Sf,
+                           device=params.device)
     for i, block in enumerate(params.dec_blocks):
         cross = _layer_cache(cache["cross"], i)
-        cross["k"].copy_((enc_out @ block.p["wk_c"]).reshape(B, Sf, KV, dh))
-        cross["v"].copy_((enc_out @ block.p["wv_c"]).reshape(B, Sf, KV, dh))
+        cross["k"].copy_(layers.heads_view(enc_out @ block.p["wk_c"], B, Sf,
+                                           KV, dh))
+        cross["v"].copy_(layers.heads_view(enc_out @ block.p["wv_c"], B, Sf,
+                                           KV, dh))
         x, _ = block(x, cfg, positions=positions,
                      cache=_layer_cache(cache["self"], i), cross=cross)
         x = layers.shard_act(x, cfg)
@@ -868,12 +872,8 @@ def _decode_attention(cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     else:
         angles = layers.rope_angles(positions, cfg.d_head, cfg.rope_theta)
     slot = write_pos[:1].long().clamp(0, W - 1)
-    if layers._is_dtensor(cache["pos"]):
-        # no sharding rule for index_copy: each rank writes its own slots
-        pos_k = cache["pos"][0].clone()
-        layers._write_slots(pos_k, slot, positions)
-    else:
-        pos_k = cache["pos"][0].index_copy(1, slot, positions)
+    pos_k = cache["pos"][0].clone()
+    layers._write_slots(pos_k, slot, positions)
     bias = layers._mask_bias(positions, pos_k, None, True, cfg.swa_window)
     return write_pos, angles, bias
 

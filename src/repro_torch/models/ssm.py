@@ -19,8 +19,10 @@ from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..core.sketch import blocked_cumsum
+from ..dtensor import from_shards, is_dtensor, meta_if_fake, placements
 from . import layers
 from .config import ModelConfig
 
@@ -29,7 +31,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over the sequence in f32, in x's dtype.
     x: (B, L, C); w: (K, C); b: (C,)."""
-    if layers._is_dtensor(x):
+    if is_dtensor(x):
         return _causal_conv_local(x, w, b)
     K, C = w.shape
     xp = F.pad(x.float().transpose(1, 2), (K - 1, 0))            # (B, C, L+K-1)
@@ -42,7 +44,6 @@ def _causal_conv_local(x, w, b):
     has no sharding rule, and a depthwise conv is independent across
     channels and batch rows, so x keeps its batch shard and takes the
     weight's channel shard."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = x.device_mesh
     px, pw, pb = [], [], []
     for i, p in enumerate(w.placements):
@@ -55,9 +56,7 @@ def _causal_conv_local(x, w, b):
     out = _causal_conv(x.redistribute(mesh, px).to_local(),
                        w.redistribute(mesh, pw).to_local(),
                        b.redistribute(mesh, pb).to_local())
-    return DTensor.from_local(out, mesh, px, run_check=False, shape=x.shape,
-                              stride=torch.empty(x.shape,
-                                                 device="meta").stride())
+    return from_shards(out, mesh, px, x.shape)
 
 
 def _split_proj(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -126,8 +125,6 @@ def _scan_local(xh, Bf, Cf, dt, la, cl: int, nc: int, cfg):
     at every chunk; the scan is independent across batch rows and heads,
     so each rank scans its batch rows and heads (over the TP axis where
     it divides the heads) with the sequence whole."""
-    from torch.distributed.tensor import DTensor
-    from ..launch.sharding import placements
     mesh = xh.device_mesh
     B, L, H, hd = xh.shape
     b = layers._batch_entry(B, cfg)
@@ -138,22 +135,16 @@ def _scan_local(xh, Bf, Cf, dt, la, cl: int, nc: int, cfg):
         return t.redistribute(mesh, placements(spec, mesh)).to_local()
 
     # without autograd (prefill) a dry-run's fake shards scan as meta
-    # tensors: ~25 us an op against ~0.7 ms (``layers._meta_if_fake``)
+    # tensors: ~25 us an op against ~0.7 ms (``dtensor.meta_if_fake``)
     run = _scan if torch.is_grad_enabled() else functools.partial(
-        layers._meta_if_fake, _scan)
+        meta_if_fake, _scan)
     y, S = run(local(xh, (b, None, h, None)), local(Bf, (b, None, None)),
                local(Cf, (b, None, None)), local(dt, (b, None, h)),
                local(la, (b, None, h)), cl, nc)
-    y = DTensor.from_local(y, mesh, placements((b, None, h, None), mesh),
-                           run_check=False, shape=xh.shape,
-                           stride=torch.empty(xh.shape,
-                                              device="meta").stride())
-    shape_S = torch.Size((B, H, hd, Bf.shape[-1]))
-    S = DTensor.from_local(S, mesh, placements((b, h, None, None), mesh),
-                           run_check=False, shape=shape_S,
-                           stride=torch.empty(shape_S,
-                                              device="meta").stride())
-    return y, S
+    return (from_shards(y, mesh, placements((b, None, h, None), mesh),
+                        xh.shape),
+            from_shards(S, mesh, placements((b, h, None, None), mesh),
+                        (B, H, hd, Bf.shape[-1])))
 
 
 def ssd_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -191,14 +182,16 @@ def ssd_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     la = dt * A                                                    # (B, L, H)
 
     xh = xs.reshape(B, L, H, hd).float()
-    scan = _scan_local if layers._is_dtensor(xh) else _scan
+    scan = _scan_local if is_dtensor(xh) else _scan
     y, S = scan(xh, Bc.float(), Cc.float(), dt, la, cl, nc, cfg)
     y = y + p["D"].float()[None, None, :, None] * xh
     y = y.reshape(B, L, d_in)[:, :L_orig]
     out = _gated_out(p, y, z[:, :L_orig], x.dtype)
     if return_state:
         K = cfg.ssm_conv
-        return out, (S, conv_in[:, L_orig - (K - 1):L_orig])
+        # a copy of the last K - 1 rows: a view would keep the whole
+        # (B, L, C) conv input of every layer alive until the states stack
+        return out, (S, conv_in[:, L_orig - (K - 1):L_orig].clone())
     return out
 
 

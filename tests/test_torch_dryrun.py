@@ -1,10 +1,11 @@
 """The dry-run CLI (``python -m repro_torch.launch.dryrun``) in a
-subprocess, with ``--device cpu --reduced``: each family's ``reduced()``
-config on a 2 x 2 ("data", "model") fake world, one cell each, spanning
-train, prefill, decode and the sub-quadratic long decode.  Every record
-must be ``ok``, carry the reference's record keys (those
-``experiments/make_roofline_table.py`` reads among them), and its per-chip
-FLOPs must lie within a stated bound of ``model_flops / chips``.
+subprocess, with ``--device cpu --reduced --jobs 4``: each family's
+``reduced()`` config on a 2 x 2 ("data", "model") fake world, one cell
+each, spanning train, prefill, decode and the sub-quadratic long decode.
+Every record must be ``ok`` and within the card's memory, carry the
+reference's record keys (those ``experiments/make_roofline_table.py``
+reads among them), and its per-chip FLOPs must lie within a stated bound
+of ``model_flops / chips``.
 
 The bound, per-chip FLOPs over model_flops / chips (N the parameters,
 D the tokens; ``a`` the attention's share of a forward, 4 S H dh a token
@@ -52,7 +53,7 @@ KEYS = {"arch", "shape", "mesh", "status", "kind", "tokens_per_step",
 def records(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-           "cpu", "--reduced", "--out", str(out)]
+           "cpu", "--reduced", "--out", str(out), "--jobs", "4"]
     for arch, shape in CELLS:
         cmd += ["--cell", f"{arch}:{shape}:pod1"]
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -83,6 +84,7 @@ def test_cell_is_ok_on_the_2x2_mesh(records, cell):
                                            "collective")
     assert rec["memory_analysis"]["argument_bytes"] > 0
     assert rec["memory_analysis"]["temp_bytes"] > 0
+    assert rec["memory_analysis"]["exceeds_card_memory"] is False
 
 
 def test_records_carry_the_reference_keys(records):

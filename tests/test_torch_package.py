@@ -56,7 +56,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.launch.mesh, repro_torch.launch.sharding, "
             "repro_torch.launch.step_analysis, "
-            "repro_torch.launch.dryrun\n"
+            "repro_torch.launch.dryrun, repro_torch.dtensor\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")

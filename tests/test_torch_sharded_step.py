@@ -10,7 +10,6 @@ gradient within 1e-5 of its leaf's max |g|, the logits within 1e-5 of
 max |logit|.  The sharded step's clip threshold (``quantile_clip=0.999``,
 counted on each rank's shards and summed over the mesh) must equal a sort
 of its own gradients' |g|, gathered whole."""
-import contextlib
 import dataclasses
 import pickle
 import time
@@ -45,13 +44,14 @@ def _steps(params, cfg, batch, mesh):
     """(loss, {path: grad}, clip threshold, prefill logits, decode logits)
     of one train step, a prefill and one decode step, plain (``mesh`` None)
     or on ``mesh``; tensors come back whole, on the host."""
+    from repro_torch.dtensor import is_dtensor
     from repro_torch.launch import sharding as shd, steps
-    from repro_torch.models import layers, model
+    from repro_torch.models import model
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.pytree import leaves, paths
 
     def whole(t):
-        return (t.full_tensor() if layers._is_dtensor(t) else t).detach()
+        return (t.full_tensor() if is_dtensor(t) else t).detach()
 
     prompt = {"tokens": batch["tokens"]}
     if mesh is not None:
@@ -60,8 +60,7 @@ def _steps(params, cfg, batch, mesh):
             mesh)[0] for b in (batch, prompt))
     tree = model.param_tree(params)
     params.requires_grad_(True)
-    with (layers.on_mesh(mesh) if mesh is not None
-          else contextlib.nullcontext()):
+    with steps.on_mesh(mesh):
         loss, _ = model.forward_loss(params, batch, cfg)
         loss.backward()
         grads = {p: whole(steps.placed_grad(t)) for p, t in
@@ -84,7 +83,7 @@ def _steps(params, cfg, batch, mesh):
     with torch.no_grad():
         for p, t in zip(paths(tree), leaves(tree)):
             w = snapshot[p]
-            if layers._is_dtensor(t):
+            if is_dtensor(t):
                 from torch.distributed.tensor import distribute_tensor
                 w = distribute_tensor(w, t.device_mesh, t.placements)
             t.copy_(w)
