@@ -116,8 +116,8 @@
    farther (at most 1.5 x) from an f32 evaluation of the same weights
    than the prefill is; then ``generate`` alone,
    with a fused ``StreamingCalibrator(q=0.999)`` and with a threaded one
-   (4 ingest workers), in turns, 5 rounds after a warm-up, the same
-   tokens each time; a plain (``fused=False``) calibrator takes the last
+   (4 ingest workers), in turns, SERVE_ROUNDS rounds after a warm-up, the
+   same tokens each time; a plain (``fused=False``) calibrator takes the last
    round's logits.  Each ``scale`` must equal a sort of
    every observed |logit| (64 ticks of 8 x 49152) bit for bit, and the
    fused ones must launch ``fused_select`` once per ring chunk (counts
@@ -157,8 +157,8 @@
    in the reference too), and the served numbers, the differing expert
    choices (decode vs prefill, bf16 vs f32), the drops and the expert
    loads are printed.  ``generate`` alone and with a fused
-   ``StreamingCalibrator``, in turns, 5 rounds after a warm-up, the same
-   tokens each time; the warm ``scale`` over every logit (8 x 64 x vocab
+   ``StreamingCalibrator``, in turns, SERVE_ROUNDS rounds after a
+   warm-up, the same tokens each time; the warm ``scale`` over every logit (8 x 64 x vocab
    values) equal to a sort bit for bit, ``fused_select`` launched (every
    count zeroed at the phase's start, read at its end).  For olmoe, the
    first layer's ``moe_block`` on the prefill's 4096 tokens against every
@@ -172,8 +172,8 @@
 11. Drives the training path (``repro_torch.launch.train.train_loop``) on
    stablelm-1.6b at its published width and depth (24 layers, d_model
    2048, 32 heads of 64, d_ff 5632, vocab 100352, LayerNorm with bias;
-   1.64 B bf16 parameters from ``--seed``): 6 steps of 8 x 2048 Zipf(1.2)
-   tokens, ``remat="nothing_saveable"``, AdamW with the exact
+   1.64 B bf16 parameters from ``--seed``): TRAIN_STEPS steps of 8 x 2048
+   Zipf(1.2) tokens, ``remat="nothing_saveable"``, AdamW with the exact
    0.999-quantile clip of |g| (the radix route), then one step with int8
    compression.  Every loss must be finite; every clip threshold and the
    int8 scale must be the exact quantile of what it was taken over (two
@@ -181,15 +181,41 @@
    route), and no clipped |g| may exceed its threshold.  Prints step time,
    tokens/s, the model-FLOPs share (6 N T at 989 TFLOP/s), the clip's time
    and share of the step, peak memory, and the busy share and top CUDA
-   kernels of one more step (after a warm-up step).  Then the
+   kernels of one more step.  Then the
    blockwise attention's backward on the first layer's q, k, v (f32, 8 x
    2048 x 32 x 64) against autograd through the direct formula (within
    1e-4 of max |grad|), with its peak memory; and exact resume at 2 layers
-   of full width: 6 steps against 3, a checkpoint (about 5 GB, through a
-   temporary directory) and a restart for 3 more, the losses within rtol =
+   of full width: TRAIN_STEPS steps against half of them, a checkpoint
+   (about 5 GB, through a temporary directory) and a restart for the rest,
+   the losses within rtol =
    atol = 2e-4 and the restored state equal to the saved one bit for bit.
    The six kernels' launch counts are zeroed before this phase and read
    after it (``train_launches``; the training path launches none).
+   Then the other families train the same way (``vlm_train_path``,
+   ``audio_train_path``, ``ssm_train_path``, ``hybrid_train_path``,
+   ``moe_train_path``): qwen2-vl-2b, seamless-m4t-large-v2, mamba2-1.3b
+   and zamba2-2.7b at their published width and depth, olmoe-1b-7b at its
+   published width and MOE_TRAIN_LAYERS of its 16 layers (the deepest
+   whose run peaks under 72 GB), each FAMILY_TRAIN_STEPS steps of 8 x 2048
+   Zipf tokens with the pipeline's patches (256 a row) or frames (512),
+   the config's remat, every loss finite and every clip threshold exact
+   as above, then one step profiled.  With the optimizer state freed:
+   olmoe's first ``moe_block`` backward on the step's 16,384 tokens,
+   dropless, against autograd through the direct f32 formula (every
+   expert on every token, the same routing), dx and each expert weight's
+   gradient within 2e-2 of max |grad|; the bf16 gradients of 2 x 2048
+   tokens against an f32 evaluation of the same weights (TF32 off), every
+   leaf of the reference's tree within 3e-2 of its max |g|, or for the
+   families whose reference misses that on the CPU twice the reference's
+   own gap there (GRAD_TOL_BY_FAMILY; olmoe's router and expert leaves
+   printed beside the expert choices that differ, not held), and whether
+   two backwards give the same bits; for seamless the blockwise
+   attention's backward at its cross-attention shape (8 x 16 heads of 64,
+   2048 queries over 1500 frames, non-causal, so the padded keys' mask
+   runs) within 1e-4 of the direct formula.  Each phase prints the
+   parameter count from the tensors beside ``cfg.param_count()``, the
+   step time beside the model-FLOPs bound (formula and tensors), the
+   clip's share, the peak memory, and must launch no kernel.
 12. The dry-run tooling (``dryrun_path``): (a) ``python -m
    repro_torch.launch.dryrun --jobs 5`` in a subprocess on fake "cuda"
    tensors (nothing allocated), each of DRYRUN_CELLS at full width in a
@@ -247,13 +273,37 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
+SERVE_ROUNDS = 2        # timed rounds of generate, after one warm-up round
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("vlm_serve_path", "qwen2-vl-2b"),
                 ("ssm_serve_path", "mamba2-1.3b"),
                 ("hybrid_serve_path", "zamba2-2.7b"),
                 ("audio_serve_path", "seamless-m4t-large-v2"))
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 6
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 4
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
+# the train phases of the other families (11b): steps, olmoe-1b-7b's cut
+# depth (the deepest whose run peaks under 72 GB), the rows and tolerance
+# of the gradient gate against f32, the moe backward's tolerance and the
+# experts its f32 formula takes at a time, and the cross-attention shape
+# of the flash backward check (B, heads, d_head, Sq, Sk frames)
+FAMILY_TRAIN_ARCHS = (("vlm_train_path", "qwen2-vl-2b"),
+                      ("audio_train_path", "seamless-m4t-large-v2"),
+                      ("ssm_train_path", "mamba2-1.3b"),
+                      ("hybrid_train_path", "zamba2-2.7b"),
+                      ("moe_train_path", "olmoe-1b-7b"))
+FAMILY_TRAIN_STEPS, MOE_TRAIN_LAYERS = 3, 10
+GRAD_B, GRAD_TOL = 2, 3e-2
+# the families whose reference's own bf16 gradient misses GRAD_TOL of its
+# f32 evaluation on the CPU (tests/_grad_gap.py at d_model 256, the worst
+# leaf of the reference's tree: seamless 24 + 24 layers after 30 steps
+# 0.222, mamba2 48 layers 0.090 and zamba2 54 layers 0.150 after 3,
+# olmoe 10 layers 0.061 after 3 but for its routed leaves; ROADMAP.md
+# Queue 3 item 13): their gate is twice that, which both packages hold
+# there
+GRAD_TOL_BY_FAMILY = {"audio": 0.44, "ssm": 0.18, "hybrid": 0.30,
+                      "moe": 0.12}
+MOE_GRAD_TOL, MOE_FORMULA_EXPERTS = 2e-2, 8
+CROSS_FLASH = (8, 16, 64, 2048, 1500)
 # the dry-run cells of phase 12 (arch, shape, mesh): decode, train, a long
 # decode on 2 x 16 x 16, a moe decode and a sliding-window prefill (the
 # cheapest full-width prefill to trace)
@@ -321,14 +371,16 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _profile(fn, top: int = 8) -> dict:
+def _profile(fn, top: int = 8, warm: bool = True) -> dict:
     """Device time by kernel (and memcpy, memset) over one call of fn after
-    a warm-up call, from torch.profiler's Chrome trace (its event list's
-    Python objects take minutes for a call of ~10^5 launches), and the
-    device's busy share of the call's wall time."""
+    a warm-up call (none where ``warm`` is False: fn ran before), from
+    torch.profiler's Chrome trace (its event list's Python objects take
+    minutes for a call of ~10^5 launches), and the device's busy share of
+    the call's wall time."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2323,7 +2375,7 @@ def serve_path(seed: int, tally) -> tuple:
 
     runs = {"alone": [], "sync": [], "threaded": [], "threaded_flush": []}
     toks, cal, threaded = None, None, None
-    for _ in range(TIMED_RUNS + 1):
+    for _ in range(SERVE_ROUNDS + 1):
         got, t = _sync_time(run)
         runs["alone"].append(t)
         if toks is not None and not torch.equal(got, toks):
@@ -2740,7 +2792,7 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
 
     runs = {"alone": [], "sync": []}
     toks, cal = None, None
-    for _ in range(TIMED_RUNS + 1):
+    for _ in range(SERVE_ROUNDS + 1):
         got, t = _sync_time(run)
         runs["alone"].append(t)
         if toks is not None and not torch.equal(got, toks):
@@ -2898,35 +2950,25 @@ class _OptimizerTaps:
         return False
 
 
-def _flash_backward_check(params, cfg, batch) -> dict:
-    """The blockwise attention's backward at full width on the first
-    layer's q, k, v (in f32) for the training batch: dq, dk, dv of the
-    autograd Function against autograd through the direct f32 formula,
-    within 1e-4 of max |grad|; and the backward's peak memory above its
-    operands beside one kv step's (B, NH, q_block, kv_block) scores."""
-    from repro_torch.models import layers, model
+def _flash_grads_check(q, k, v, pos_q, pos_k, *, causal: bool,
+                       window: int, q_block: int, kv_block: int) -> dict:
+    """The blockwise attention's backward (``layers._flash``) on f32 q, k,
+    v: dq, dk, dv of the autograd Function against autograd through the
+    direct f32 formula, for a N(0, 1) cotangent, within 1e-4 of max
+    |grad|; and the backward's peak memory above its operands beside one
+    kv step's (B, NH, q_block, kv_block) scores."""
+    from repro_torch.models import layers
 
-    B, S = batch["tokens"].shape
-    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if S * S <= cfg.attn_q_block * cfg.attn_kv_block * 2:
-        raise AssertionError("train flash check: not the blockwise path")
-    with torch.no_grad():
-        x, pos, _ = model._embed_inputs(params.p, batch, cfg)
-        p = params.blocks[0].p
-        h = layers.norm(x, p, cfg, "ln1")
-        q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
-                                  cfg.rope_theta).float()
-                for w, n in (("wq", NH), ("wk", KV)))
-        v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
-        del x, h
+    (B, Sq, NH, dh), Sk = q.shape, k.shape[1]
+    if Sq * Sk <= q_block * kv_block * 2:
+        raise AssertionError("flash check: not the blockwise path")
     gen = torch.Generator(device="cuda").manual_seed(7)
     dout = torch.randn(q.shape, generator=gen, device="cuda")
-    kw = dict(window=cfg.swa_window, q_block=cfg.attn_q_block,
-              kv_block=cfg.attn_kv_block)
 
     def grads(**blocks):
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        out = layers.attention(qq, kk, vv, pos, pos, **blocks)
+        out = layers.attention(qq, kk, vv, pos_q, pos_k, causal=causal,
+                               window=window, **blocks)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -2937,22 +2979,44 @@ def _flash_backward_check(params, cfg, batch) -> dict:
                 torch.cuda.max_memory_allocated() - before,
                 time.perf_counter() - t0)
 
-    blockwise, peak, flash_s = grads(**kw)
-    direct, direct_peak, direct_s = grads(window=cfg.swa_window,
-                                          q_block=S, kv_block=S)
+    blockwise, peak, flash_s = grads(q_block=q_block, kv_block=kv_block)
+    direct, direct_peak, direct_s = grads(q_block=Sq, kv_block=Sk)
     err = max(float((a - b).abs().max() / b.abs().max())
               for a, b in zip(blockwise, direct))
     if not err <= 1e-4:
-        raise AssertionError(f"train flash backward: {err} of max |grad| "
-                             f"off the direct formula")
-    return {"batch": B, "seq_len": S, "heads": NH, "d_head": dh,
+        raise AssertionError(f"flash backward (causal={causal}, Sq={Sq}, "
+                             f"Sk={Sk}): {err} of max |grad| off the "
+                             f"direct formula")
+    return {"batch": B, "seq_len": Sq, "keys": Sk, "heads": NH,
+            "d_head": dh, "causal": causal, "padded_keys": -Sk % kv_block,
             "rel_err": err, "bound": 1e-4,
             "backward_peak_above_operands_bytes": peak,
-            "kv_step_scores_bytes": B * NH * cfg.attn_q_block
-            * cfg.attn_kv_block * 4,
+            "kv_step_scores_bytes": B * NH * q_block * kv_block * 4,
             "backward_s": flash_s,
             "direct_backward_peak_above_operands_bytes": direct_peak,
             "direct_backward_s": direct_s}
+
+
+def _flash_backward_check(params, cfg, batch) -> dict:
+    """``_flash_grads_check`` at full width on the first layer's q, k, v
+    (in f32) for the training batch (causal)."""
+    from repro_torch.models import layers, model
+
+    B, S = batch["tokens"].shape
+    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    with torch.no_grad():
+        x, pos, _ = model._embed_inputs(params.p, batch, cfg)
+        p = params.blocks[0].p
+        h = layers.norm(x, p, cfg, "ln1")
+        q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
+                                  cfg.rope_theta).float()
+                for w, n in (("wq", NH), ("wk", KV)))
+        v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
+        del x, h
+    return _flash_grads_check(q, k, v, pos, pos, causal=True,
+                              window=cfg.swa_window,
+                              q_block=cfg.attn_q_block,
+                              kv_block=cfg.attn_kv_block)
 
 
 def _exact_resume(cfg, seed: int) -> dict:
@@ -3012,14 +3076,13 @@ def train_path(seed: int) -> dict:
     clip, ``remat="nothing_saveable"``; then one step with int8
     compression.  Every loss is finite, and every clip threshold and the
     int8 scale of these steps is the exact quantile of what it was taken
-    over.  Then two steps, the second profiled (without those checks),
-    the flash backward at full width and exact resume at
+    over.  Then one more step, profiled (without those checks), the flash
+    backward at full width and exact resume at
     TRAIN_RESUME_LAYERS layers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch import roofline
     from repro_torch.launch.train import train_loop
-    from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.optim import AdamWConfig
 
     t_phase = time.perf_counter()
@@ -3042,10 +3105,7 @@ def train_path(seed: int) -> dict:
                                  f"{TRAIN_STEPS} steps")
         peak = torch.cuda.max_memory_allocated() - base
         params, opt_state = out["params"], out["opt_state"]
-        pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                            global_batch=TRAIN_B, seed=seed))
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        batch = _train_batch(cfg, TRAIN_STEPS, seed)
         compress_step = make_train_step(cfg, AdamWConfig(
             quantile_clip=TRAIN_Q, compress_bits=8))
         torch.cuda.reset_peak_memory_stats()
@@ -3059,10 +3119,9 @@ def train_path(seed: int) -> dict:
                     torch.cuda.max_memory_allocated() - base}
         if not (math.isfinite(compress["loss"]) and len(taps.scales) == 1):
             raise AssertionError(f"train compress step: {compress}")
-    # two more steps, the second profiled, without the taps' checks and
-    # syncs
+    # one more step, profiled, without the taps' checks and syncs
     step = make_train_step(cfg, AdamWConfig(quantile_clip=TRAIN_Q))
-    profiled = _profile(lambda: step(params, opt_state, batch))
+    profiled = _profile(lambda: step(params, opt_state, batch), warm=False)
     checks = {"clip_thresholds": taps.thresholds, "int8_scales": taps.scales,
               "check_s": taps.check_s}
     del opt_state, m, step
@@ -3092,6 +3151,406 @@ def train_path(seed: int) -> dict:
         "exactness": checks, "compress_step": compress,
         "profiled_step": profiled, "flash_backward": flash,
         "exact_resume": resume, "wall_s": time.perf_counter() - t_phase,
+    }
+
+
+# ---------------------------------------------------------------------------
+# 11b. the vlm, audio, ssm, hybrid and moe families through train_loop
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, step: int, seed: int) -> dict:
+    """``train_loop``'s batch of ``step`` on the card: TRAIN_B x TRAIN_S
+    Zipf tokens and the family's patches or frames, from ``--seed``."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    pipe = SyntheticPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=seed,
+        frontend_len=cfg.frontend_len,
+        enc_seq=TRAIN_S // cfg.enc_seq_divisor if cfg.is_encdec else 0,
+        d_model=cfg.d_model))
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in pipe.batch_at(step).items()}
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """While open, f32 matmuls and cuDNN's convolutions run in full f32
+    (no TF32), forward and backward."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _loss_grads(params, cfg, batch) -> tuple:
+    """(loss, every gradient in ``param_tree`` order) of one forward and
+    backward of ``forward_loss``."""
+    from repro_torch import pytree
+    from repro_torch.models import model
+    tree = pytree.leaves(model.param_tree(params))
+    params.requires_grad_(True)
+    loss, _ = model.forward_loss(params, batch, cfg)
+    loss.backward()
+    grads = [w.grad for w in tree]
+    for w in tree:
+        w.grad = None
+    params.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+class _RouteTap:
+    """Wraps ``repro_torch.models.moe.route`` while active: each call's
+    experts (T, k), sorted along k, are appended to ``calls`` (a
+    rematerialised layer's route runs again in the backward)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route = self.route = self.moe.route
+
+        def tapped(p, xt, cfg):
+            out = route(p, xt, cfg)
+            self.calls.append(out[2].sort(-1).values)
+            return out
+        self.moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+        return False
+
+
+# the moe leaves that the gradient gate prints and does not hold: a flipped
+# expert choice is a discrete change, in both packages
+_ROUTED = ("router", "we_gate", "we_up", "we_down")
+
+
+def _leaf_name(path: str) -> str:
+    """The weight's name in a ``pytree.paths`` entry: "['blocks'][0]['wq']"
+    -> "wq"."""
+    return path.rsplit("'", 2)[-2]
+
+
+def _leaf_kind(path: str) -> str:
+    """The reference's leaf a ``pytree.paths`` entry of the port's tree
+    belongs to: "['blocks'][3]['wq']" -> "blocks.wq" (the JAX package
+    stacks a list of layers into one leaf), "['mamba'][2][4]['D']" ->
+    "mamba.D", "['shared']['wq']" -> "shared.wq", "['embed']" ->
+    "embed"."""
+    top, name = path.split("'")[1], _leaf_name(path)
+    return name if top == name else f"{top}.{name}"
+
+
+def _grad_vs_f32(params, cfg, batch) -> dict:
+    """One step's gradients of ``batch`` (GRAD_B rows) in bf16, twice
+    (``same_bits_twice``: the same loss and gradient bits both times), and
+    for ``param_dtype="float32"`` on the same weights cast to f32, with
+    TF32 off.  Gate: every leaf of the reference's tree (a list of layers
+    stacked into one leaf, as the CPU tests compare them) within its
+    family's tolerance (GRAD_TOL, or GRAD_TOL_BY_FAMILY) of its f32
+    evaluation: max |g_bf16 - g_f32| over max |g_f32|.  Each layer's own
+    gap is printed beside it.  A moe model's router and expert leaves are
+    printed, not held, beside the (token, layer) expert choices on which
+    the two evaluations differ (in their forwards)."""
+    from repro_torch import pytree
+    from repro_torch.models import model
+
+    names = pytree.paths(model.param_tree(params))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with _RouteTap() as tap:
+        loss, grads = _loss_grads(params, cfg, batch)
+        routes, tap.calls = tap.calls[:cfg.n_layers], []
+        loss2, grads2 = _loss_grads(params, cfg, batch)
+        same = loss == loss2 and _same_bits(grads, grads2)
+        del grads2
+        f32 = dataclasses.replace(cfg, param_dtype="float32")
+        params32 = model.Transformer(f32, device="cuda")
+        with torch.no_grad():
+            for dst, src in zip(pytree.leaves(model.param_tree(params32)),
+                                pytree.leaves(model.param_tree(params))):
+                dst.copy_(src)
+        tap.calls = []
+        with _full_f32():
+            loss32, grads32 = _loss_grads(params32, f32, batch)
+        routes32 = tap.calls[:cfg.n_layers]
+    del params32
+    # each layer's max |g_bf16 - g_f32| and max |g_f32|; a stacked leaf's
+    # gap is the largest of the first over the largest of the second
+    diff, scale = {}, {}
+    for n, g, w in zip(names, grads, grads32):
+        diff[n] = float((g.float() - w).abs().max())
+        scale[n] = float(w.abs().max())
+    del grads, grads32
+    kinds = {}
+    for n in names:
+        d, w = kinds.get(_leaf_kind(n), (0.0, 0.0))
+        kinds[_leaf_kind(n)] = (max(d, diff[n]), max(w, scale[n]))
+    gaps = {k: d / max(w, 1e-30) for k, (d, w) in kinds.items()}
+    per_layer = {}
+    for n in names:
+        k = _leaf_kind(n)
+        per_layer[k] = max(per_layer.get(k, 0.0),
+                           diff[n] / max(scale[n], 1e-30))
+    routed = {k for k in gaps
+              if cfg.family == "moe" and k.split(".")[-1] in _ROUTED}
+    gated = {k: g for k, g in gaps.items() if k not in routed}
+    worst = max(gated, key=gated.get)
+    tol = GRAD_TOL_BY_FAMILY.get(cfg.family, GRAD_TOL)
+    out = {"batch": list(batch["tokens"].shape), "loss_bf16": loss,
+           "loss_f32": loss32, "leaves": len(gaps),
+           "gated_leaves": len(gated), "tolerance": tol,
+           "worst_leaf": worst, "worst_share_of_max": gated[worst],
+           "share_of_max": dict(sorted(gaps.items(), key=lambda kv: -kv[1])),
+           "per_layer_share_of_max": dict(sorted(per_layer.items(),
+                                                 key=lambda kv: -kv[1])),
+           "over_tolerance": {k: g for k, g in gated.items()
+                              if not g <= tol},
+           "same_bits_twice": same,
+           "peak_above_before_bytes": torch.cuda.max_memory_allocated()
+           - base, "seconds": time.perf_counter() - t0}
+    if routed:
+        out["routed_leaves"] = sorted(routed)
+        out["token_layer_choices"] = sum(r.shape[0] for r in routes)
+        out["token_layer_choices_differ"] = int(sum(
+            (a != b).any(-1).sum() for a, b in zip(routes, routes32)))
+    if not (math.isfinite(loss) and math.isfinite(loss32)):
+        raise AssertionError(f"{cfg.name}: gradient gate losses {out}")
+    if out["over_tolerance"]:
+        raise AssertionError(f"{cfg.name}: bf16 gradients off their f32 "
+                             f"evaluation: {out}")
+    return out
+
+
+@torch.no_grad()
+def _moe_layer_input(params, batch, cfg) -> torch.Tensor:
+    """The first layer's ``moe_block`` input (B, S, D) for ``batch``."""
+    from repro_torch.models import layers, model
+    p = params.blocks[0].p
+    x, pos, pos3 = model._embed_inputs(params.p, batch, cfg)
+    h, _ = layers.attn_block(p, layers.norm(x, p, cfg, "ln1"), cfg,
+                             positions=pos, positions3=pos3)
+    return layers.norm(x + h, p, cfg, "ln2")
+
+
+def _moe_backward(params, batch, cfg) -> dict:
+    """The first layer's ``moe_block`` at full width on the training
+    batch's tokens, dropless (capacity factor E / k: every assignment
+    kept), for a N(0, 1) cotangent of its output: autograd through the
+    block against autograd through the direct formula in f32 (TF32 off)
+    on the same routing: every expert on every token (MOE_FORMULA_EXPERTS
+    experts at a time), each token's experts by their gates (the router's
+    softmax in f32, renormalised over the token's k experts, so that dx
+    takes the gates' path too), summed.  dx and each expert weight's
+    gradient within MOE_GRAD_TOL of its max |grad|."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    dropless = dataclasses.replace(cfg, moe_capacity_factor=E / k)
+    p = dict(params.blocks[0].p.items())
+    xn = _moe_layer_input(params, batch, cfg)
+    B, S, D = xn.shape
+    T = B * S
+    names = ("we_gate", "we_up", "we_down")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dy = torch.randn((B, S, D), generator=gen, device="cuda").to(xn.dtype)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = xn.detach().requires_grad_()
+    w = {n: p[n].detach().requires_grad_() for n in names}
+    y, _ = moe.moe_block({**p, **w}, x, dropless)
+    y.backward(dy)
+    got = [x.grad] + [w[n].grad for n in names]
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    del x, w, y
+    with torch.no_grad():
+        _, _, top_i = moe.route(p, xn.reshape(T, D), cfg)
+        load = torch.bincount(top_i.reshape(-1), minlength=E)
+    cap = moe.capacity(T, dropless)
+    if int(load.max()) > cap:
+        raise AssertionError(f"moe backward: capacity {cap} drops")
+
+    t0 = time.perf_counter()
+    with _full_f32():
+        x = xn.detach().float().requires_grad_()
+        w = {n: p[n].detach().float().requires_grad_() for n in names}
+        xt = x.reshape(T, D)
+        probs = torch.softmax(xt @ p["router"].float(), -1)
+        gates = probs.gather(1, top_i)
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+        g_leaf = gates.detach().requires_grad_()
+        dy32 = dy.reshape(T, D).float()
+        tok = torch.arange(T, device="cuda")[:, None]
+        n = MOE_FORMULA_EXPERTS
+        for e0 in range(0, E, n):
+            es = slice(e0, e0 + n)
+            hid = F.silu(xt @ w["we_gate"][es]) * (xt @ w["we_up"][es])
+            out = hid @ w["we_down"][es]                     # (n, T, D)
+            mine = (top_i >= e0) & (top_i < e0 + n)
+            picked = out[(top_i - e0).clamp(0, n - 1), tok]  # (T, k, D)
+            y_c = (picked * torch.where(mine, g_leaf, 0.0)[..., None]).sum(1)
+            (y_c * dy32).sum().backward()
+            del hid, out, picked, y_c
+        gates.backward(g_leaf.grad)
+        want = [x.grad] + [w[n].grad for n in names]
+    torch.cuda.synchronize()
+    formula_s = time.perf_counter() - t0
+    errs = {name: _rel_err(a.float(), b) for name, a, b
+            in zip(("dx",) + names, got, want)}
+    del got, want, x, w
+    torch.cuda.empty_cache()
+    out = {"tokens": T, "capacity": cap, "max_expert_load": int(load.max()),
+           "rel_err": errs, "tolerance": MOE_GRAD_TOL, "block_s": block_s,
+           "formula_s": formula_s,
+           "formula_flop": 3 * 2 * 3 * E * T * D * cfg.d_ff}
+    if not all(e <= MOE_GRAD_TOL for e in errs.values()):
+        raise AssertionError(f"moe backward off its f32 formula: {out}")
+    return out
+
+
+def _cross_flash_check(cfg, seed: int) -> dict:
+    """``_flash_grads_check`` at an encoder-decoder's cross-attention shape
+    (CROSS_FLASH: B, heads, d_head, Sq, Sk frames), non-causal, on N(0, 1)
+    f32 q, k, v from ``--seed``: Sk is not a multiple of ``kv_block``, so
+    the padded keys' mask runs in the backward."""
+    B, NH, dh, Sq, Sk = CROSS_FLASH
+    if Sk % cfg.attn_kv_block == 0:
+        raise AssertionError("cross flash check: no padded keys")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    q, k, v = (torch.randn((B, n, NH, dh), generator=gen, device="cuda")
+               for n in (Sq, Sk, Sk))
+
+    def pos(n):
+        return torch.arange(n, dtype=torch.int32,
+                            device="cuda").expand(B, n)
+    return _flash_grads_check(q, k, v, pos(Sq), pos(Sk), causal=False,
+                              window=0, q_block=cfg.attn_q_block,
+                              kv_block=cfg.attn_kv_block)
+
+
+def family_train_path(name: str, arch: str, seed: int) -> dict:
+    """``arch`` (the vlm, audio, ssm, hybrid or moe family) at its published
+    width, and at its published depth but for olmoe-1b-7b's
+    MOE_TRAIN_LAYERS (its 16 layers' state does not fit one card),
+    through ``train_loop`` from ``--seed``: FAMILY_TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S Zipf tokens with the pipeline's patches or frames,
+    AdamW with the exact TRAIN_Q clip and the config's remat.  Every loss
+    is finite and every clip threshold the exact quantile of its |g|
+    (``_OptimizerTaps``); then one more step, profiled, without those
+    checks.  With the optimizer state freed: a moe model's first
+    ``moe_block`` backward against its f32 formula (``_moe_backward``);
+    the bf16 gradients of GRAD_B rows against an f32 evaluation
+    (``_grad_vs_f32``); an encoder-decoder's cross-attention backward at
+    CROSS_FLASH.  Every launch count is zeroed at the start and must be 0
+    at the end: the training path launches none of the kernels."""
+    import repro_torch.kernels as K
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    cfg = get_config(arch)
+    published = cfg.n_layers + cfg.enc_layers
+    reduced = None
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+        reduced = {"n_layers": f"{MOE_TRAIN_LAYERS} of {published}: the "
+                   f"deepest whose run peaks under 72 GB on one card (about "
+                   f"6.7 GB a layer; the published depth's weights, "
+                   f"gradients and AdamW state alone are 83 GB)"}
+    with _OptimizerTaps() as taps:
+        out = train_loop(cfg, steps=FAMILY_TRAIN_STEPS, global_batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=seed, log_every=1,
+                         device="cuda")
+    losses = out["losses"]
+    if len(losses) != FAMILY_TRAIN_STEPS or not all(
+            math.isfinite(l) for l in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    if len(taps.thresholds) != FAMILY_TRAIN_STEPS:
+        raise AssertionError(f"{name}: {len(taps.thresholds)} clips in "
+                             f"{FAMILY_TRAIN_STEPS} steps")
+    params, opt_state = out.pop("params"), out.pop("opt_state")
+    batch = _train_batch(cfg, FAMILY_TRAIN_STEPS, seed)
+    step = make_train_step(cfg, AdamWConfig(quantile_clip=TRAIN_Q))
+    profiled = _profile(lambda: step(params, opt_state, batch), warm=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    paths = pytree.paths(model.param_tree(params))
+    tree = pytree.leaves(model.param_tree(params))
+    n_params = sum(w.numel() for w in tree)
+    # the experts' weights, of which a token runs k of E
+    n_experts = sum(w.numel() for n, w in zip(paths, tree)
+                    if _leaf_name(n) in _ROUTED[1:])
+    del opt_state, step, tree
+    torch.cuda.empty_cache()
+
+    moe_bwd = (_moe_backward(params, batch, cfg)
+               if cfg.family == "moe" else None)
+    grad_batch = {k: v[:GRAD_B] for k, v in batch.items()}
+    del batch
+    torch.cuda.empty_cache()
+    grad_gate = _grad_vs_f32(params, cfg, grad_batch)
+    del params, grad_batch
+    torch.cuda.empty_cache()
+    cross = _cross_flash_check(cfg, seed) if cfg.is_encdec else None
+    if any(K.launches().values()):
+        raise AssertionError(f"{name} launched {K.launches()}")
+    if not peak < roofline.HBM_BYTES:
+        raise AssertionError(f"{name}: peak {peak} bytes")
+
+    # steps 2.., each without its exactness checks
+    timed = [s - c for s, c in zip(out["step_s"], taps.check_s)][1:]
+    step_s = statistics.median(timed)
+    clip_s = statistics.median(taps.clip_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    bound_s = roofline.model_flops(cfg, tokens, "train") / roofline.PEAK_FLOPS
+    active = n_params - n_experts * (cfg.moe_experts - cfg.moe_top_k) \
+        // cfg.moe_experts if cfg.family == "moe" else n_params
+    tensor_bound_s = 6 * active * tokens / roofline.PEAK_FLOPS
+    return {
+        "arch": arch, "family": cfg.family, "params": n_params,
+        "param_count_formula": cfg.param_count(),
+        "active_params_per_token": active,
+        "active_param_count_formula": cfg.active_param_count(),
+        "layers": cfg.n_layers + cfg.enc_layers,
+        "layers_published": published, "reduced": reduced,
+        "remat": cfg.remat, "batch": TRAIN_B, "seq_len": TRAIN_S,
+        "tokens_per_step": tokens, "patch_positions": cfg.frontend_len,
+        "frames": TRAIN_S // cfg.enc_seq_divisor if cfg.is_encdec else 0,
+        "quantile_clip": TRAIN_Q, "losses": losses,
+        "step_s_each": out["step_s"], "step_s": step_s,
+        "tokens_per_s": tokens / step_s,
+        "model_flops_bound_s": bound_s,
+        "model_flops_share": bound_s / step_s,
+        "model_flops_bound_s_from_tensors": tensor_bound_s,
+        "model_flops_share_from_tensors": tensor_bound_s / step_s,
+        "clip_s": clip_s, "clip_share_of_step": clip_s / step_s,
+        "clip_s_each": taps.clip_s, "clip_leaves": len(paths),
+        "clip_thresholds": taps.thresholds, "check_s": taps.check_s,
+        "peak_memory_bytes": peak, "profiled_step": profiled,
+        "moe_backward": moe_bwd, "grad_vs_f32": grad_gate,
+        "same_bits_twice": grad_gate["same_bits_twice"],
+        "cross_flash_backward": cross,
+        "wall_s": time.perf_counter() - t_phase,
     }
 
 
@@ -3232,17 +3691,13 @@ SHARDED_LOSS_TOL, SHARDED_GRAD_TOL, SHARDED_LOGIT_TOL = 1e-4, 3e-2, 1e-3
 def _sharded_train(mesh, seed: int) -> dict:
     from repro_torch import pytree
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.launch import sharding as shd, steps
     from repro_torch.models import layers, model
     from repro_torch.optim import AdamWConfig, adamw_init
 
     cfg = get_config(TRAIN_ARCH)
     params = model.init_params(cfg, seed, device="cuda")
-    pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                        global_batch=TRAIN_B, seed=seed))
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in pipe.batch_at(0).items()}
+    batch = _train_batch(cfg, 0, seed)
     opt_cfg = AdamWConfig(quantile_clip=TRAIN_Q)
     loss_p, grads_p, thr_p, dx_p = _train_grads(params, cfg, batch, None)
     names = pytree.paths(model.param_tree(params))
@@ -3507,6 +3962,9 @@ def main() -> int:
     result = train_path(args.seed)
     print(json.dumps({"train_path": result}), flush=True)
     train_launches = K.launches()
+    for name, arch in FAMILY_TRAIN_ARCHS:
+        result = family_train_path(name, arch, args.seed)
+        print(json.dumps({name: result}), flush=True)
     for row in kernels:
         row["train_launches"] = train_launches.get(row["name"], 0)
     K.reset_launches()

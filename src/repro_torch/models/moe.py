@@ -15,8 +15,11 @@ assignments are the reference's exactly:
   * each buffer row is gathered from its token (no scatter), and each
     token adds its k gated expert outputs one after another from zero in
     ascending expert order, in the activation dtype, as the reference's
-    ``zeros.at[tok].add`` does in the sorted order.  No step adds with
-    atomics, so a run on the card gives the same bits every time.
+    ``zeros.at[tok].add`` does in the sorted order.  No step of the
+    forward adds with atomics, so a forward on the card gives the same
+    bits every time.  The backward makes no such promise: each gather's
+    backward is an accumulating ``index_put_``, which adds a token's k
+    buffer rows into its gradient row in the activation dtype.
 """
 from __future__ import annotations
 

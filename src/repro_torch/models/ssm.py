@@ -88,9 +88,15 @@ def _chunk_step(S: torch.Tensor, xck, Bck, Cck, dtk, lak):
     cum = blocked_cumsum(lak.transpose(1, 2)).transpose(1, 2)      # (B, cl, H)
     # intra-chunk quadratic form: bf16 operands, f32 accumulation
     scores = torch.einsum("btn,bsn->bts", Cck, Bck)                # (B, cl, cl)
-    Lmat = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])      # (B,t,s,H)
-    tri = torch.ones((cl, cl), dtype=torch.bool, device=xck.device).tril()
-    M = torch.where(tri[None, :, :, None], scores[..., None] * Lmat, 0.0)
+    tri = torch.ones((cl, cl), dtype=torch.bool,
+                     device=xck.device).tril()[None, :, :, None]
+    # the decay from s to t, masked above the diagonal before the exp:
+    # there cum_t - cum_s > 0 overflows to inf once a chunk's decay passes
+    # e^88, and a mask after the exp gives its zero gradient times inf
+    # (NaN) in the backward, as the reference's does
+    Lmat = torch.exp(torch.where(tri, cum[:, :, None, :] - cum[:, None, :, :],
+                                 -torch.inf))                      # (B,t,s,H)
+    M = torch.where(tri, scores[..., None] * Lmat, 0.0)
     Mdt = (M * dtk[:, None, :, :]).to(torch.bfloat16).float()
     y_intra = torch.einsum("btsh,bshp->bthp", Mdt,
                            xck.to(torch.bfloat16).float())

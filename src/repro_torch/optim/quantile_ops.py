@@ -7,8 +7,9 @@ the JAX order.
 ``pytree_exact_quantile`` treats every chunk of every leaf as one GK Select
 "partition": per-chunk sample sketches are built leaf by leaf (no
 concatenation of the data), merged once, and the count and extract phases
-run per leaf and combine.  ``pytree_radix_quantile`` is the O(1)-memory
-radix search over the sortable-uint32 keys with exact two-limb ranks.
+run per leaf and combine.  ``pytree_radix_quantile`` is the radix search
+over the sortable-uint32 keys, one leaf's at a time, with exact two-limb
+ranks.
 ``channelwise_exact_quantile`` answers C channels (dense or ragged) as one
 grouped GK Select job.  Every answer is the sort oracle's, bit for bit.
 """
@@ -111,15 +112,16 @@ _U32 = 0xFFFFFFFF
 def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
                           bits_per_pass: int = 4,
                           transform: Callable = torch.abs) -> torch.Tensor:
-    """Exact q-quantile over a pytree with O(1) extra memory: radix search
-    on the sortable-uint32 keys, one streaming pass per digit
+    """Exact q-quantile over a pytree, holding one leaf's keys at a time:
+    radix search on the sortable-uint32 keys, one streaming pass per digit
     (``bits_per_pass`` bits a pass, 2^b bucket bounds against one read of
-    each chunk).  Ranks are exact two-limb (hi, lo) base-2^16 int32
-    integers, as the reference's: per-chunk counts stay < 2^21 and limb
-    sums < 2^31.  A leaf longer than a chunk of 2^20 keys is padded to
-    whole chunks, as the reference pads every leaf; a shorter one is one
-    row of its own length (the same counts).  Keys are held as int64 (uint32 arithmetic, wrap
-    included, masked to 32 bits).  Returns a 0-d f32 tensor.
+    each chunk), each pass making each leaf's keys again.  Ranks are exact
+    two-limb (hi, lo) base-2^16 int32 integers, as the reference's:
+    per-chunk counts stay < 2^21 and limb sums < 2^31.  A leaf longer than
+    a chunk of 2^20 keys is padded to whole chunks, as the reference pads
+    every leaf; a shorter one is one row of its own length (the same
+    counts).  Keys are int64 (uint32 arithmetic, wrap included, masked to
+    32 bits).  Returns a 0-d f32 tensor.
 
     DTensor leaves count on each rank's shard: the leaves split over the
     same mesh dimensions form a group, and a group's (hi, lo) pairs of
@@ -135,14 +137,15 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
     groups = {}                        # split mesh dims -> (reduce, leaves)
     for l in tree_l:
         dims, local, reduce = _split_dims(l)
-        groups.setdefault(dims, (reduce, []))[1].append(
-            transform(local).to(torch.float32))
+        groups.setdefault(dims, (reduce, []))[1].append(local)
     device = next(iter(groups.values()))[1][0].device
 
-    def keys(l):
-        return u32_as_int64(to_sortable_u32(l.reshape(-1)))
-
-    def rows(u):
+    def rows(l):
+        """One leaf's keys as int64 rows: made again for every digit, so
+        that the keys of one leaf at a time are held (a copy of every
+        leaf's keys would be 12 bytes a parameter)."""
+        u = u32_as_int64(to_sortable_u32(
+            transform(l).to(torch.float32).reshape(-1)))
         if u.numel() <= _RADIX_CHUNK:
             return u[None]          # one row, unpadded: the same counts
         pad = (-u.numel()) % _RADIX_CHUNK
@@ -151,36 +154,39 @@ def pytree_radix_quantile(tree, q: float, *, passes: int = 32,
             u = torch.cat([u, u.new_full((pad,), 0xFFFFFFFE)])
         return u.reshape(-1, _RADIX_CHUNK)
 
-    chunked = [(reduce, [rows(keys(l)) for l in ls])
-               for reduce, ls in groups.values()]
     k_hi, k_lo = k >> 16, k & 0xFFFF
 
     def group_pairs(n_bounds: int, *ts):
         """(hi, lo), each (n_bounds,) int32: one group's count of keys <=
-        each bound; ``ts`` holds the bounds, then the group's rows."""
-        pairs = []
-        for t in ts[:n_bounds]:
-            g_hi = torch.zeros((), dtype=torch.int32, device=t.device)
-            g_lo = torch.zeros_like(g_hi)
-            for ch in ts[n_bounds:]:
-                c = (ch <= t).sum(1, dtype=torch.int32)      # (m,) < 2^21
-                leaf_lo = (c & 0xFFFF).sum(dtype=torch.int32)
-                g_hi = g_hi + (c >> 16).sum(dtype=torch.int32) \
-                    + (leaf_lo >> 16)
-                g_lo = g_lo + (leaf_lo & 0xFFFF)             # carry per leaf
-            pairs.append((g_hi, g_lo))
-        return (torch.stack([h for h, _ in pairs]),
-                torch.stack([l for _, l in pairs]))
+        each bound; ``ts`` holds the bounds, then the group's leaves.  All
+        bounds are compared with a block of a leaf's rows at once: a
+        (n_bounds, rows, chunk) mask of at most 2^23 elements or one row
+        (its count takes an int32 copy of it)."""
+        bounds = torch.stack(ts[:n_bounds])[:, None, None]
+        hi = torch.zeros(n_bounds, dtype=torch.int32, device=bounds.device)
+        lo = torch.zeros_like(hi)
+        for leaf in ts[n_bounds:]:
+            ch = rows(leaf)
+            R = max(1, (1 << 23) // (n_bounds * ch.shape[1]))
+            blocks = [(ch[r:r + R] <= bounds).sum(-1, dtype=torch.int32)
+                      for r in range(0, ch.shape[0], R)]
+            del ch
+            c = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+            del blocks                             # c: (n_bounds, m) < 2^21
+            leaf_lo = (c & 0xFFFF).sum(1, dtype=torch.int32)
+            hi = hi + (c >> 16).sum(1, dtype=torch.int32) + (leaf_lo >> 16)
+            lo = lo + (leaf_lo & 0xFFFF)                     # carry per leaf
+        return hi, lo
 
     def ge_k(bounds) -> torch.Tensor:
         """(len(bounds),) bool: at least k keys <= each bound."""
         hi = torch.zeros(len(bounds), dtype=torch.int32, device=device)
         lo = torch.zeros_like(hi)
-        for reduce, chs in chunked:
+        for reduce, ls in groups.values():
             # a dry-run's fake shards count as meta tensors: the same ops
             # on the same shapes, ~25 us an op against ~0.7 ms
             g_hi, g_lo = meta_if_fake(functools.partial(
-                group_pairs, len(bounds)), *bounds, *chs)
+                group_pairs, len(bounds)), *bounds, *ls)
             if reduce is not None:
                 # the group's pairs, carried, summed over its shards'
                 # ranks: lo < 2^16 x ranks
@@ -301,7 +307,10 @@ def quantile_clip_by_value(grads, q: float = 0.999, *, eps: float = 1e-3,
     """Clip gradient magnitudes at the *exact* q-quantile of |g| across the
     whole pytree: ``(clipped, threshold)``.  ``method="radix"`` scales to
     billions of elements; ``"gk_select"`` is the paper-faithful 3-phase
-    path (right for calibration-scale n)."""
+    path (right for calibration-scale n).  A 16-bit leaf is clipped in
+    f32 and rounded to its dtype, as the reference's: where the threshold
+    is an f32 value between two of the leaf's, a clipped value may round
+    above it."""
     if method == "radix":
         thr = pytree_radix_quantile(grads, q)
     else:

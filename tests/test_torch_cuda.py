@@ -480,3 +480,28 @@ def test_ssm_decode_on_card_makes_no_host_sync(arch, cuda):
     got = serve.generate(cfg, card, prompts.to(cuda), gen_len=6,
                          extras=extras)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_radix_quantile_holds_one_leaf_of_keys_on_card(cuda):
+    """``pytree_radix_quantile`` over 8 bf16 leaves of 2^22 values on the
+    card: its peak above the tree is at most 32 bytes a value of one leaf
+    (the keys of one leaf at a time; every leaf's keys and f32 copies held
+    at once were 12 bytes a value of the whole tree, 3 x this bound), and
+    the answer is the sort's."""
+    from repro_torch.core import local_ops
+    from repro_torch.optim.quantile_ops import pytree_radix_quantile
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = 1 << 22
+    leaves = [torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+              for _ in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    thr = pytree_radix_quantile(leaves, 0.999)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= 32 * n, peak
+    flat = torch.cat(leaves).float().abs()
+    k = local_ops.target_rank(flat.numel(), 0.999)
+    assert float(thr) == float(torch.sort(flat).values[k - 1])

@@ -1,6 +1,7 @@
 """The port's ``quantile_clip_by_value`` (radix and gk_select) against the
 JAX package's, bit for bit (inputs and helpers:
 ``test_torch_quantile_ops.py``)."""
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,3 +30,24 @@ def test_quantile_clip_by_value_matches_jax(dtype, method):
             for a, b in zip(jl, tl):
                 assert tb(b) == jb(a), q
             assert isinstance(tc["a"][1], tuple)
+
+
+
+def test_a_16_bit_leaf_clips_to_its_nearest_value_as_jax():
+    """A tree of an f32 and a bf16 leaf whose 0.6-quantile, 1.005, is the
+    f32 leaf's and lies between two bf16 values (1.0 and 1.0078125, the
+    nearer).  Both packages clip the bf16 leaf's larger values to 1.005
+    in f32 and round to the nearest bf16, 1.0078125, above the threshold
+    (``ROADMAP.md`` Queue 3): the port mirrors the reference, bit for
+    bit."""
+    f32 = np.array([0.5, 1.005], np.float32)
+    bf16 = np.array([0.25, 1.0078125, -3.0], np.float32)
+    jc, jthr = J.quantile_clip_by_value(
+        {"a": jnp.asarray(f32), "b": jnp.asarray(bf16, jnp.bfloat16)}, 0.6)
+    tc, tthr = T.quantile_clip_by_value(
+        {"a": torch.from_numpy(f32),
+         "b": torch.from_numpy(bf16).to(torch.bfloat16)}, 0.6)
+    assert tb(tthr) == jb(jthr) and float(tthr) == float(np.float32(1.005))
+    assert tb(tc["a"]) == jb(jc["a"]) and tb(tc["b"]) == jb(jc["b"])
+    assert tc["b"].float().tolist() == [0.25, 1.0078125, -1.0078125]
+    assert float(tc["b"].float().abs().max()) > float(tthr)
