@@ -69,7 +69,7 @@ from . import layers, moe, ssm
 from .config import ModelConfig
 from ..core.select import as_device_tensor, require_device
 from ..dtensor import is_dtensor
-from ..pytree import leaves, paths, tree_map
+from ..pytree import leaves, paths, tree_map, unflatten
 
 CE_CHUNK = 256
 
@@ -485,6 +485,18 @@ def unstacked(tree: Mapping[str, Any]) -> Dict[str, Any]:
         else:
             out[name] = t
     return out
+
+
+def by_stacked_leaf(tree: Mapping[str, Any], values) -> Dict[str, list]:
+    """``values``, one for each leaf of ``tree`` (shaped as ``param_tree``,
+    in ``leaves`` order), grouped by the leaf of the JAX package's layout
+    (``stacked``) that holds it, keyed by that leaf's path:
+    {"['blocks']['wq']": [layer 0's, layer 1's, ...], "['embed']":
+    [its one], ...}."""
+    one = unflatten(tree, [torch.tensor(float(v), dtype=torch.float64)
+                           for v in values])
+    out = stacked(one)
+    return {p: t.flatten().tolist() for p, t in zip(paths(out), leaves(out))}
 
 
 def params_to_numpy(tree) -> Dict[str, Any]:

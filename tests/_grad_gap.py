@@ -14,11 +14,12 @@ state and chunk, experts and top-k), with bf16 weights from one JAX
 carried to the port bit for bit, and the pipeline's next batch of
 ``--batch`` x ``--seq`` Zipf tokens (with its patches or frames).  For
 each package: every gradient of ``forward_loss`` in bf16 against the
-same weights cast to f32 (``param_dtype="float32"``), each leaf's max |g_bf16 - g_f32| over its
-max |g_f32| (and the same in the 2-norm, ``*_l2``, and a layer at a time,
-``*_per_layer``); the leaves past ``--tol`` and the worst gap of each kind
-of leaf (``wq``, ``wk``, ... of each list of layers).  One JSON line a
-width.  ``chip_smoke.py``'s train phases gate the same gap at full width.
+same weights cast to f32 (``param_dtype="float32"``), max |g_bf16 -
+g_f32| over max |g_f32| of each leaf of the port's tree (a layer at a
+time, as ``chip_smoke.py``'s train phases gate it at full width): the
+worst leaf, the count past ``--tol``, the worst layer of each leaf of the
+reference's layout (``per_stacked_leaf``) and that leaf taken whole
+(``stacked``).  One JSON line a width.
 """
 from __future__ import annotations
 
@@ -29,50 +30,32 @@ import json
 import numpy as np
 
 
-def _gaps(got, want, paths, norm=np.inf) -> dict:
-    """{path: |g - w| / |w|} in the ``norm`` (max |.| by default, or 2)
-    over each leaf."""
-    out = {}
-    for path, g, w in zip(paths, got, want):
-        w = np.asarray(w, np.float64).ravel()
-        d = np.asarray(g, np.float64).ravel() - w
-        out[path] = float(np.linalg.norm(d, norm)
-                          / max(np.linalg.norm(w, norm), 1e-30))
-    return out
+def _summary(tree, got, want, tol: float) -> dict:
+    """Each leaf's max |g - w| over max |w| (the leaves of ``tree``, the
+    port's ``param_tree``: a layer at a time), the worst leaf and the
+    count past ``tol``; grouped by the leaf of the reference's layout
+    that stacks them (``model.by_stacked_leaf``), each group's worst layer
+    (``per_stacked_leaf``) and the group taken whole, max |g - w| of its
+    layers over max |w| of its layers (``stacked``)."""
+    from repro_torch import pytree
+    from repro_torch.models import model as TM
 
+    diff = [float(np.abs(np.asarray(g, np.float64) - w).max())
+            for g, w in zip(got, want)]
+    scale = [float(np.abs(np.asarray(w, np.float64)).max()) for w in want]
+    gap = [d / max(w, 1e-30) for d, w in zip(diff, scale)]
+    paths = pytree.paths(tree)
+    worst = int(np.argmax(gap))
 
-def _layer_gaps(got, want, paths) -> dict:
-    """{path: the worst of its layers' max |g - w| / max |w|}: a stacked
-    leaf of a list of layers (L, ...) or (G, every, ...) taken a layer at
-    a time, as the port's tree holds it; a top or shared leaf as it is."""
-    out = {}
-    for path, g, w in zip(paths, got, want):
-        g = np.asarray(g, np.float64)
-        w = np.asarray(w, np.float64)
-        lead = (0 if path.count("][") == 0 or path.startswith("['shared']")
-                else 2 if path.startswith("['mamba']") else 1)
-        g = g.reshape(int(np.prod(g.shape[:lead])), -1) if lead else g[None]
-        w = w.reshape(g.shape)
-        d = np.abs(g - w).max(1) / np.maximum(np.abs(w).max(1), 1e-30)
-        out[path] = float(d.max())
-    return out
+    def ranked(kv: dict) -> dict:
+        return dict(sorted(kv.items(), key=lambda kv: -kv[1]))
 
-
-def _kind(path: str) -> str:
-    """"['dec_blocks'][3]['wq']" -> "dec_blocks.wq"; a top leaf its name."""
-    parts = [p.strip("[]'") for p in path.split("][")]
-    return parts[-1] if len(parts) == 1 else f"{parts[0]}.{parts[-1]}"
-
-
-def _summary(gaps: dict, tol: float) -> dict:
-    kinds = {}
-    for path, g in gaps.items():
-        k = _kind(path)
-        kinds[k] = max(kinds.get(k, 0.0), g)
-    worst = max(gaps, key=gaps.get)
-    return {"worst_leaf": worst, "worst": gaps[worst],
-            "over_tol": sum(g > tol for g in gaps.values()),
-            "by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    d, w, g = (TM.by_stacked_leaf(tree, v) for v in (diff, scale, gap))
+    return {"worst_leaf": paths[worst], "worst": gap[worst],
+            "over_tol": sum(x > tol for x in gap),
+            "per_stacked_leaf": ranked({k: max(v) for k, v in g.items()}),
+            "stacked": ranked({k: max(d[k]) / max(max(w[k]), 1e-30)
+                               for k in d})}
 
 
 def grad_gaps(arch: str, d_model: int, *, layers: int, batch: int = 2,
@@ -134,40 +117,44 @@ def grad_gaps(arch: str, d_model: int, *, layers: int, batch: int = 2,
                                                     param_dtype="float32")))
     tp = TM.params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     del jp
-    paths = pytree.paths(TM.params_to_numpy(tp))
+    tree = TM.param_tree(tp)
+    layout = TM.params_to_numpy(tp)
+
+    def per_layer(stacked_leaves):
+        """The reference's gradients as the port's tree holds them."""
+        out = TM.unstacked(pytree.unflatten(
+            layout, [torch.from_numpy(np.asarray(a, np.float32))
+                     for a in stacked_leaves]))
+        assert pytree.paths(out) == pytree.paths(tree)
+        return [t.numpy() for t in pytree.leaves(out)]
 
     def port(params, c):
         params.requires_grad_(True)
         loss, _ = TM.forward_loss(params, {k: torch.from_numpy(np.array(v))
                                            for k, v in data.items()}, c)
         loss.backward()
-        grads = pytree.tree_map(lambda w: w.grad, TM.param_tree(params))
-        return [np.asarray(g.float().numpy() if g.dtype == torch.bfloat16
-                           else g.numpy()) for g in
-                pytree.leaves(TM.stacked(grads, device="cpu"))]
+        return [w.grad.float().numpy()
+                for w in pytree.leaves(TM.param_tree(params))]
 
     t16 = port(tp, cfg)
     c32 = dataclasses.replace(cfg, param_dtype="float32")
     tp32 = TM.Transformer(c32, device="cpu")
     with torch.no_grad():
         for dst, src in zip(pytree.leaves(TM.param_tree(tp32)),
-                            pytree.leaves(TM.param_tree(tp))):
+                            pytree.leaves(tree)):
             dst.copy_(src)
     t32 = port(tp32, c32)
 
     def f32(a):
         return np.asarray(jnp.asarray(a, jnp.float32))
 
-    j16, j32 = [f32(a) for a in j16], [f32(a) for a in j32]
+    j16 = per_layer([f32(a) for a in j16])
+    j32 = per_layer([f32(a) for a in j32])
     return {"arch": arch, "d_model": d_model, "layers": layers,
             "batch": batch, "seq": seq, "steps": steps, "vocab": cfg.vocab,
             "losses": losses, "tol": tol,
-            "jax": _summary(_gaps(j16, j32, paths), tol),
-            "port": _summary(_gaps(t16, t32, paths), tol),
-            "jax_l2": _summary(_gaps(j16, j32, paths, 2), tol),
-            "port_l2": _summary(_gaps(t16, t32, paths, 2), tol),
-            "jax_per_layer": _summary(_layer_gaps(j16, j32, paths), tol),
-            "port_per_layer": _summary(_layer_gaps(t16, t32, paths), tol)}
+            "jax": _summary(tree, j16, j32, tol),
+            "port": _summary(tree, t16, t32, tol)}
 
 
 def main() -> None:

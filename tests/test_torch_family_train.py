@@ -56,3 +56,28 @@ def check_train_loop(arch: str, tmp_path) -> None:
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_loop_losses_match_jax(arch, tmp_path):
     check_train_loop(arch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", ("zamba2-2.7b", "seamless-m4t-large-v2"))
+def test_by_stacked_leaf_groups_layers_as_the_reference_stacks_them(arch):
+    """``model.by_stacked_leaf`` (which groups the train phases' per-layer
+    gradient gaps) keys each group by a leaf path of JAX's ``init_params``
+    and lists its layers in the order ``stacked`` stacks them."""
+    from repro_torch import pytree
+    from repro_torch.models import model
+
+    cfg = get_config(arch).reduced()
+    tree = model.param_tree(model.Transformer(cfg, device="cpu"))
+    filled = pytree.unflatten(tree, [torch.full_like(w, float(i)) for i, w
+                                     in enumerate(pytree.leaves(tree))])
+    got = model.by_stacked_leaf(tree, range(len(pytree.leaves(tree))))
+    shapes = jax.eval_shape(
+        lambda: JM.init_params(jget_config(arch).reduced(),
+                               jax.random.PRNGKey(SEED)))
+    assert list(got) == [jax.tree_util.keystr(p) for p, _ in
+                         jax.tree_util.tree_flatten_with_path(shapes)[0]]
+    stacked = model.stacked(filled)
+    for path, leaf in zip(pytree.paths(stacked), pytree.leaves(stacked)):
+        assert got[path] == leaf.reshape(len(got[path]), -1)[:, 0].tolist()
+    assert sorted(v for vs in got.values() for v in vs) == list(
+        range(len(pytree.leaves(tree))))
