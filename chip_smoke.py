@@ -116,8 +116,9 @@
    farther (at most 1.5 x) from an f32 evaluation of the same weights
    than the prefill is; then ``generate`` alone,
    with a fused ``StreamingCalibrator(q=0.999)`` and with a threaded one
-   (4 ingest workers), in turns, SERVE_ROUNDS rounds after a warm-up, the
-   same tokens each time; a plain (``fused=False``) calibrator takes the last
+   (4 ingest workers), in turns, SERVE_ROUNDS rounds (their median; no
+   warm-up round, as the prefill and the decode step have run just
+   before), the same tokens each time; a plain (``fused=False``) calibrator takes the last
    round's logits.  Each ``scale`` must equal a sort of
    every observed |logit| (64 ticks of 8 x 49152) bit for bit, and the
    fused ones must launch ``fused_select`` once per ring chunk (counts
@@ -157,8 +158,8 @@
    in the reference too), and the served numbers, the differing expert
    choices (decode vs prefill, bf16 vs f32), the drops and the expert
    loads are printed.  ``generate`` alone and with a fused
-   ``StreamingCalibrator``, in turns, SERVE_ROUNDS rounds after a
-   warm-up, the same tokens each time; the warm ``scale`` over every logit (8 x 64 x vocab
+   ``StreamingCalibrator``, in turns, SERVE_ROUNDS rounds (as
+   ``serve_path``'s), the same tokens each time; the warm ``scale`` over every logit (8 x 64 x vocab
    values) equal to a sort bit for bit, ``fused_select`` launched (every
    count zeroed at the phase's start, read at its end).  For olmoe, the
    first layer's ``moe_block`` on the prefill's 4096 tokens against every
@@ -219,16 +220,19 @@
    step time beside the model-FLOPs bound (formula and tensors), the
    clip's share, the peak memory, and must launch no kernel.
 12. The dry-run tooling (``dryrun_path``): (a) ``python -m
-   repro_torch.launch.dryrun --jobs 5`` in a subprocess on fake "cuda"
+   repro_torch.launch.dryrun --jobs 6`` in a subprocess on fake "cuda"
    tensors (nothing allocated), each of DRYRUN_CELLS at full width in a
    process and fake world of its own (decode, train, a sub-quadratic long
-   decode on the 2 x 16 x 16 mesh, a moe decode and a sliding-window
-   prefill), traced on the host's other cores while (b) runs: every
+   decode on the 2 x 16 x 16 mesh, a moe decode, a sliding-window
+   prefill and a moe train step, whose expert-parallel dispatch must fit
+   the card), traced on the host's other cores while (b) runs: every
    record ``ok`` and within the card's 80 GB, its per-chip FLOPs, bytes,
    collective bytes and counts, dominant roofline term and trace seconds
    printed; (b) a real sharded step on the card, an NCCL world of one
-   rank and a (1, 1) ("data", "model") mesh: stablelm-1.6b's train step at
-   11's 8 x 2048 with ``distribute_params`` and granite-8b's prefill and
+   rank and a (1, 1) ("data", "model") mesh: SHARDED_TRAIN's train steps
+   at 11's 8 x 2048 with ``distribute_params`` (stablelm-1.6b, and
+   olmoe-1b-7b at 2 of its 16 layers: the expert-parallel moe layer's
+   exchanges on the card) and granite-8b's prefill and
    one decode step at 9's shapes, each against the plain step on the same
    weights (loss, every gradient, logits: equal bits or the gap, held to
    the CPU tests' bf16 tolerances: loss 1e-4, gradients 3e-2 of max |g|,
@@ -275,7 +279,7 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
-SERVE_ROUNDS = 3        # timed rounds of generate, after one warm-up round
+SERVE_ROUNDS = 3        # timed rounds of generate (their median)
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("vlm_serve_path", "qwen2-vl-2b"),
                 ("ssm_serve_path", "mamba2-1.3b"),
@@ -293,7 +297,7 @@ FAMILY_TRAIN_ARCHS = (("vlm_train_path", "qwen2-vl-2b"),
                       ("ssm_train_path", "mamba2-1.3b"),
                       ("hybrid_train_path", "zamba2-2.7b"),
                       ("moe_train_path", "olmoe-1b-7b"))
-FAMILY_TRAIN_STEPS, MOE_TRAIN_LAYERS = 3, 10
+FAMILY_TRAIN_STEPS, MOE_TRAIN_LAYERS = 2, 10
 GRAD_B, GRAD_TOL = 2, 3e-2
 # where the reference's own bf16 gradient misses GRAD_TOL of its f32
 # evaluation on the CPU at the seed's weights, a layer at a time:
@@ -341,13 +345,19 @@ GRAD_GAP_CPU = {
 MOE_GRAD_TOL, MOE_FORMULA_EXPERTS = 2e-2, 8
 CROSS_FLASH = (8, 16, 64, 2048, 1500)
 # the dry-run cells of phase 12 (arch, shape, mesh): decode, train, a long
-# decode on 2 x 16 x 16, a moe decode and a sliding-window prefill (the
-# cheapest full-width prefill to trace)
+# decode on 2 x 16 x 16, a moe decode, a sliding-window prefill (the
+# cheapest full-width prefill to trace) and a moe train step (the
+# expert-parallel dispatch, within the card)
 DRYRUN_CELLS = (("granite-8b", "decode_32k", "pod1"),
                 ("stablelm-1.6b", "train_4k", "pod1"),
                 ("mamba2-1.3b", "long_500k", "pod2"),
                 ("olmoe-1b-7b", "decode_32k", "pod1"),
-                ("h2o-danube-1.8b", "prefill_32k", "pod1"))
+                ("h2o-danube-1.8b", "prefill_32k", "pod1"),
+                ("olmoe-1b-7b", "train_4k", "pod1"))
+# the sharded train steps of phase 12 (arch, layers; None: all of them):
+# the dense one, and olmoe-1b-7b's at 2 of its 16 layers (the
+# expert-parallel moe layer on the card)
+SHARDED_TRAIN = (("stablelm-1.6b", None), ("olmoe-1b-7b", 2))
 DRYRUN_LIMIT_S = 600
 TIMED_RUNS = 5
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
@@ -2403,15 +2413,16 @@ def serve_path(seed: int, tally) -> tuple:
     torch.cuda.empty_cache()
 
     # generate alone, with a fused calibrator and with a threaded one, in
-    # turns (one warm-up round); each calibrated run gets a fresh
-    # calibrator, and the last round's are queried below
+    # turns (no warm-up round: the prefill and the decode step ran above,
+    # and the median sets a slower first round aside); each calibrated
+    # run gets a fresh calibrator, and the last round's are queried below
     def run(cal=None):
         return serve.generate(cfg, params, prompts, gen_len=G,
                               calibrator=cal)
 
     runs = {"alone": [], "sync": [], "threaded": [], "threaded_flush": []}
     toks, cal, threaded = None, None, None
-    for _ in range(SERVE_ROUNDS + 1):
+    for _ in range(SERVE_ROUNDS):
         got, t = _sync_time(run)
         runs["alone"].append(t)
         if toks is not None and not torch.equal(got, toks):
@@ -2432,7 +2443,6 @@ def serve_path(seed: int, tally) -> tuple:
         if not torch.equal(got, toks):
             raise AssertionError("serve: tokens changed with a threaded "
                                  "calibrator")
-    runs = {k: v[1:] for k, v in runs.items()}
     gen_s, gen_sync_s, gen_threaded_s, threaded_flush_s = (
         statistics.median(runs[k]) for k in ("alone", "sync", "threaded",
                                              "threaded_flush"))
@@ -2820,15 +2830,15 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
     del cache
     torch.cuda.empty_cache()
 
-    # generate alone and with a fused calibrator, in turns (one warm-up
-    # round); the tokens must not change
+    # generate alone and with a fused calibrator, in turns (as
+    # serve_path's); the tokens must not change
     def run(cal=None):
         return serve.generate(cfg, params, prompts, gen_len=G,
                               extras=prompt_extras, calibrator=cal)
 
     runs = {"alone": [], "sync": []}
     toks, cal = None, None
-    for _ in range(SERVE_ROUNDS + 1):
+    for _ in range(SERVE_ROUNDS):
         got, t = _sync_time(run)
         runs["alone"].append(t)
         if toks is not None and not torch.equal(got, toks):
@@ -2840,7 +2850,6 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         runs["sync"].append(t)
         if not torch.equal(got, toks):
             raise AssertionError(f"{name}: tokens changed with a calibrator")
-    runs = {k: v[1:] for k, v in runs.items()}
     gen_s, gen_sync_s = (statistics.median(runs[k]) for k in runs)
     launches = {k: c for k, c in K.launches().items() if c}
 
@@ -3639,6 +3648,7 @@ def _dryrun_cells():
                     "status", "error", "kind", "chips", "trace_s",
                     "hlo_flops_per_chip", "hlo_bytes_per_chip",
                     "collective_bytes_per_chip", "collective_counts",
+                    "collective_breakdown", "collective_result_breakdown",
                     "model_flops_per_chip", "useful_flops_ratio",
                     "memory_analysis")}
             records[f"{arch}:{shape}:{mesh}"]["dominant"] = (
@@ -3727,14 +3737,18 @@ def _second_s(fn) -> tuple:
 SHARDED_LOSS_TOL, SHARDED_GRAD_TOL, SHARDED_LOGIT_TOL = 1e-4, 3e-2, 1e-3
 
 
-def _sharded_train(mesh, seed: int) -> dict:
+def _sharded_train(mesh, seed: int, arch: str, n_layers=None) -> dict:
+    """One of SHARDED_TRAIN: ``arch`` (at ``n_layers`` where given) at
+    TRAIN_B x TRAIN_S, its sharded train step held to the plain one."""
     from repro_torch import pytree
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as shd, steps
     from repro_torch.models import layers, model
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = model.init_params(cfg, seed, device="cuda")
     batch = _train_batch(cfg, 0, seed)
     opt_cfg = AdamWConfig(quantile_clip=TRAIN_Q)
@@ -3768,7 +3782,8 @@ def _sharded_train(mesh, seed: int) -> dict:
     batch = steps.distribute_inputs((batch,), (shd.placements_tree(
         mesh, shd.batch_spec(mesh, batch, TRAIN_B)),), mesh)[0]
     loss_s, grads_s, thr_s, dx_s = _train_grads(params, mcfg, batch, mesh)
-    _check_exact_quantile("sharded train step", grads_s, thr_s, TRAIN_Q)
+    _check_exact_quantile(f"{arch} sharded train step", grads_s, thr_s,
+                          TRAIN_Q)
     # the embedding's gradient sums every occurrence of a token (Zipf:
     # thousands for the common ones): both steps' are held to its f32 sum
     embed_f32_gap_s = _rel_err(grads_s[at].float(), _f32_embed_grad(
@@ -3785,8 +3800,8 @@ def _sharded_train(mesh, seed: int) -> dict:
         mesh, shd.opt_shardings(mesh, opt, tree)),), mesh)[0]
     step = steps.make_train_step(mcfg, opt_cfg, mesh)
     _, sharded_s = _second_s(lambda: step(params, opt, batch))
-    out = {"arch": TRAIN_ARCH, "batch": TRAIN_B, "seq_len": TRAIN_S,
-           "loss_plain": loss_p, "loss_sharded": loss_s,
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": TRAIN_B,
+           "seq_len": TRAIN_S, "loss_plain": loss_p, "loss_sharded": loss_s,
            "loss_bits_equal": loss_p == loss_s,
            "loss_gap": abs(loss_s - loss_p), "grads_bits_equal": same,
            "grad_gap_share_of_max": gap, "grad_gap_worst_leaf": worst,
@@ -3803,7 +3818,7 @@ def _sharded_train(mesh, seed: int) -> dict:
             and gap <= SHARDED_GRAD_TOL
             and embed_f32_gap_p <= SHARDED_GRAD_TOL
             and embed_f32_gap_s <= SHARDED_GRAD_TOL):
-        raise AssertionError(f"sharded train step: {out}")
+        raise AssertionError(f"{arch} sharded train step: {out}")
     return out
 
 
@@ -3864,8 +3879,11 @@ def _sharded_steps(seed: int) -> dict:
                                 rank=0, world_size=1)
         try:
             mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
-            out = {"train": _sharded_train(mesh, seed)}
-            torch.cuda.empty_cache()
+            out = {}
+            for arch, n_layers in SHARDED_TRAIN:
+                out[f"train:{arch}"] = _sharded_train(mesh, seed, arch,
+                                                      n_layers)
+                torch.cuda.empty_cache()
             out["serve"] = _sharded_serve(mesh, seed)
             torch.cuda.empty_cache()
         finally:
@@ -3921,6 +3939,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
     import repro_torch.kernels as K
@@ -3929,7 +3948,15 @@ def main() -> int:
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    # each phase's seconds, from the end of the one before it
+    phase_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name], t_lap[0] = now - t_lap[0], now
+
     build_all()
+    lap("build")
 
     tally = Tally()
     fused_parity(tally)
@@ -3944,6 +3971,7 @@ def main() -> int:
         if p != t:
             raise AssertionError(f"{name}: {t - p} of {t} cases differ from "
                                  f"the plain version")
+    lap("parity")
     bad = signed_zero_path()
     print(json.dumps({"signed_zero_mismatches": bad}), flush=True)
     if bad:
@@ -3953,22 +3981,28 @@ def main() -> int:
     kernels = result.pop("kernels")
     gk_median_s = result["gk_select_median_s"]
     print(json.dumps({"main_path": result}), flush=True)
+    lap("main_path")
     result, rows = counting_path(x, pivots, want, k)
     kernels += rows
     print(json.dumps({"counting_path": result}), flush=True)
+    lap("counting_path")
     result = baselines_path(x, want_multi, gk_median_s)
     print(json.dumps({"baselines_path": result}), flush=True)
+    lap("baselines_path")
     del x, pivots                # the grouped path's peak counts its own data
     torch.cuda.empty_cache()
     result, rows, (values, keys, want_grouped) = grouped_path(args.seed)
     kernels += rows
     print(json.dumps({"grouped_path": result}), flush=True)
+    lap("grouped_path")
     x = _main_data(args.seed)    # the same array again, for the last paths
     result, service_launches = service_path(x, want, want_multi, gk_median_s,
                                             tally)
     print(json.dumps({"service_path": result}), flush=True)
+    lap("service_path")
     result, tenant_launches = tenants_path(args.seed, tally)
     print(json.dumps({"tenants_path": result}), flush=True)
+    lap("tenants_path")
     for row in kernels:
         row["service_launches_per_query"] = {
             f"{path}.{query}": counts["launches"][row["name"]]
@@ -3979,10 +4013,12 @@ def main() -> int:
     result = sharded_path(x, {"single": want, "multi": want_multi,
                               "grouped": want_grouped}, values, keys, tally)
     print(json.dumps({"sharded_path": result}), flush=True)
+    lap("sharded_path")
     del x, values, keys
     torch.cuda.empty_cache()
     result, serve_launches = serve_path(args.seed, tally)
     print(json.dumps({"serve_path": result}), flush=True)
+    lap("serve_path")
     for row in kernels:
         row["service_launches_per_query"].update({
             f"serve_path.{query}": counts["launches"][row["name"]]
@@ -3992,6 +4028,7 @@ def main() -> int:
         result, family_launches = family_serve_path(name, arch, args.seed,
                                                     tally)
         print(json.dumps({name: result}), flush=True)
+        lap(name)
         for row in kernels:
             row["service_launches_per_query"].update({
                 f"{name}.{query}": counts["launches"][row["name"]]
@@ -4000,15 +4037,18 @@ def main() -> int:
     K.reset_launches()
     result = train_path(args.seed)
     print(json.dumps({"train_path": result}), flush=True)
+    lap("train_path")
     train_launches = K.launches()
     for name, arch in FAMILY_TRAIN_ARCHS:
         result = family_train_path(name, arch, args.seed)
         print(json.dumps({name: result}), flush=True)
+        lap(name)
     for row in kernels:
         row["train_launches"] = train_launches.get(row["name"], 0)
     K.reset_launches()
     result = dryrun_path(args.seed)
     print(json.dumps({"dryrun_path": result}), flush=True)
+    lap("dryrun_path")
     if any(K.launches().values()):
         raise AssertionError(f"dryrun_path launched {K.launches()}")
     parity = tally.result()
@@ -4018,6 +4058,8 @@ def main() -> int:
                                  f"the plain version")
     for row in kernels:
         row["parity_cases"] = "{}/{}".format(*parity[row["name"]])
+    print(json.dumps({"phase_s": phase_s,
+                      "smoke_s": time.perf_counter() - t_start}), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -11,7 +11,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-__all__ = ["is_dtensor", "placements", "from_shards", "meta_if_fake"]
+__all__ = ["is_dtensor", "placements", "shard_range", "from_shards",
+           "meta_if_fake"]
 
 
 def is_dtensor(x) -> bool:
@@ -32,6 +33,22 @@ def placements(spec: Sequence, mesh) -> tuple:
             raise ValueError(f"axis {name!r} shards dims {dims} of {spec}")
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
+
+
+def shard_range(n: int, mesh, place: Sequence, dim: int) -> tuple:
+    """(first index, length) of this rank's shard of a dimension of size
+    ``n``, tensor dimension ``dim`` under ``place``: each mesh dimension
+    that shards it splits the piece before it into ``torch.chunk``'s
+    pieces (the last ones shorter or empty), the mesh dimensions in
+    order, as DTensor splits it."""
+    start, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(place):
+        if p.is_shard() and p.dim == dim:
+            c = -(-size // mesh.size(i))
+            start += min(size, coord[i] * c)
+            size = max(0, min(size, (coord[i] + 1) * c) - coord[i] * c)
+    return start, size
 
 
 def from_shards(local: torch.Tensor, mesh, place: Sequence,

@@ -151,6 +151,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
             hlo_bytes_per_chip=bytes_acc,
             collective_bytes_per_chip=coll_bytes,
             collective_breakdown=ana["collective_bytes"],
+            collective_result_breakdown=ana["collective_result_bytes"],
             collective_counts=ana["collective_counts"],
             roofline=terms,
             model_flops_total=mf,
@@ -160,6 +161,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
                 "argument_bytes": arg_bytes,
                 "output_bytes": out_bytes,
                 "temp_bytes": ana["peak_bytes"],
+                # the largest tensors live at that peak (the step's own)
+                "peak_tensors": ana["peak_tensors"],
                 "generated_code_bytes": None,
                 # arguments and the step's peak together past the card's
                 # memory: the cell would not run on an H100 as planned
@@ -171,8 +174,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
             print(f"[ok] {tag}: trace {t_trace:.0f}s  "
                   f"flops/chip {flops:.3g}  bytes/chip {bytes_acc:.3g}  "
                   f"coll/chip {coll_bytes:.3g}  dominant {terms['dominant']}"
+                  f"  args {arg_bytes / 1e9:.3g} GB  peak "
+                  f"{ana['peak_bytes'] / 1e9:.3g} GB"
                   + ("  EXCEEDS CARD MEMORY" if rec["memory_analysis"][
                       "exceeds_card_memory"] else ""), flush=True)
+            for t in ana["peak_tensors"]:
+                print(f"    peak {t['bytes'] / 1e9:.3g} GB {t['dtype']}"
+                      f"{t['shape']} {t.get('placements', '')} "
+                      f"{t['op']} at {t['at']}", flush=True)
     except Exception as e:  # a failing cell is a bug; record it loudly
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -255,7 +264,8 @@ def _run_parallel(cells, args) -> list:
         out = log.readlines()
         log.close()
         if not proc.returncode:
-            out = [ln for ln in out if ln.startswith(("[ok]", "[ERROR]"))]
+            out = [ln for ln in out
+                   if ln.startswith(("[ok]", "[ERROR]", "    peak"))]
         print("".join(out), end="", flush=True)
     records = []
     for cell in cells:

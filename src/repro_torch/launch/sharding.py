@@ -27,7 +27,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..dtensor import from_shards, placements
+from ..dtensor import from_shards, placements, shard_range
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWState
 from .mesh import axis_sizes, batch_axes
@@ -225,14 +225,8 @@ def local_shape(shape: Sequence[int], mesh, place: Sequence) -> Tuple:
     """This rank's shard of a tensor of global ``shape`` under ``place``:
     each Shard(d) splits dimension d into ``torch.chunk``'s pieces (the
     last ones shorter or empty), the mesh dimensions in order."""
-    out = list(shape)
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(place):
-        if p.is_shard():
-            n, k = out[p.dim], mesh.size(i)
-            c = -(-n // k)
-            out[p.dim] = max(0, min(n, (coord[i] + 1) * c) - coord[i] * c)
-    return tuple(out)
+    return tuple(shard_range(n, mesh, place, d)[1]
+                 for d, n in enumerate(shape))
 
 
 def sharded_full(shape: Sequence[int], value, dtype, mesh, place: Sequence,

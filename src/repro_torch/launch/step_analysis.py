@@ -25,10 +25,20 @@ every ATen op that reaches the mode is counted:
                         all-gather result / group, reduce-scatter result
                         x group, all-reduce, all-to-all and
                         collective-permute the result
+  * collective result   the bytes each collective writes on this rank,
+    bytes               by kind: an all-gather's whole result (its
+                        operand bytes x the group: what the rank
+                        receives and its own piece), which the
+                        reference's operand bytes leave out
   * collective counts
   * peak live bytes     of the tensors the step made (each storage once,
                         from its first op to its release): the
                         counterpart of XLA's temp bytes
+  * peak tensors        the largest of them live at the peak: bytes,
+                        local shape and dtype, the op that made it, the
+                        innermost line of the package that called it, and
+                        the global shape and placements where a DTensor
+                        op (not a backward) made it
 
 Eager execution runs every layer (there is no scan to unroll), so the
 reference's while-loop trip counts have no counterpart: every figure is
@@ -38,11 +48,14 @@ step's work and are skipped.
 """
 from __future__ import annotations
 
+import heapq
+import os
 import sys
 import weakref
 from typing import Dict
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -74,6 +87,8 @@ _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "detach", "alias",
                "split_with_sizes", "narrow", "view_as", "reshape"}
 # DTensor's sharding propagation (fake global-shape ops, not the step's)
 _PROPAGATION = ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PEAK_TENSORS = 8          # the largest live tensors kept at the peak
 
 
 def _in_propagation() -> bool:
@@ -109,6 +124,41 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _caller() -> str:
+    """The innermost frame of the package outside this module, as
+    ``file:line function``."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.startswith(_PACKAGE) and path != __file__:
+            return (f"{os.path.relpath(path, _PACKAGE)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
+class _Placements(TorchFunctionMode):
+    """Notes the global shape and placements of each DTensor that a torch
+    call returns, under its local shard's storage, for the storages that
+    ``owner`` tracks (the backward's DTensors do not pass through here)."""
+
+    def __init__(self, owner: "StepAnalysis"):
+        super().__init__()
+        self.owner = owner
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        from torch.distributed.tensor import DTensor
+        for t in _tensors(out):
+            if isinstance(t, DTensor):
+                info = self.owner.info.get(
+                    t._local_tensor.untyped_storage()._cdata)
+                if info is not None and "placements" not in info:
+                    info["global_shape"] = list(t.shape)
+                    info["placements"] = [str(p) for p in t.placements]
+        return out
+
+
 class StepAnalysis(TorchDispatchMode):
     """The counters of ``analyze``, as a dispatch mode: enter it around
     any eager code and read ``result()``."""
@@ -118,24 +168,53 @@ class StepAnalysis(TorchDispatchMode):
         self.flops = 0
         self.traffic = 0
         self.coll_bytes = {k: 0 for k in COLLECTIVES}
+        self.coll_result = {k: 0 for k in COLLECTIVES}
         self.coll_count = {k: 0 for k in COLLECTIVES}
         self.live = {}            # storage -> bytes, while it lives
+        self.info = {}            # storage -> what made it, while it lives
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.peak_tensors = []
+        self._noted = 0           # live bytes when peak_tensors was taken
+        self._placements = _Placements(self)
 
-    def _track(self, out) -> None:
+    def __enter__(self):
+        self._placements.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._placements.__exit__(*exc)
+
+    def _track(self, out, func) -> None:
         for t in _tensors(out):
             st = t.untyped_storage()
             key = st._cdata
             if key in self.live:
                 continue
             self.live[key] = n = st.nbytes()
+            self.info[key] = {"bytes": n, "shape": list(t.shape),
+                              "dtype": str(t.dtype).replace("torch.", ""),
+                              "op": str(func), "at": _caller()}
             self.live_bytes += n
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            if self.live_bytes > self.peak_bytes:
+                self.peak_bytes = self.live_bytes
+                # a new list of the largest only past 1/1000 of growth
+                # (every op of a rising step would make one)
+                if self.live_bytes > self._noted * 1.001:
+                    self._note_peak()
             weakref.finalize(st, self._release, key)
+
+    def _note_peak(self) -> None:
+        self._noted = self.live_bytes
+        self.peak_tensors = [self.info[k] for k in heapq.nlargest(
+            PEAK_TENSORS, self.live, key=self.live.get)]
 
     def _release(self, key) -> None:
         self.live_bytes -= self.live.pop(key, 0)
+        self.info.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -150,7 +229,7 @@ class StepAnalysis(TorchDispatchMode):
             return out
         ns = func.namespace
         name = func._overloadpacket.__name__
-        self._track(out)
+        self._track(out, func)
         if ns in _C10D_NAMESPACES:
             self._collective(func, args, kwargs, out)
             return out
@@ -180,6 +259,7 @@ class StepAnalysis(TorchDispatchMode):
         else:
             b = rb
         self.coll_bytes[kind] += b
+        self.coll_result[kind] += rb
         self.coll_count[kind] += 1
 
     def result(self) -> Dict:
@@ -191,7 +271,10 @@ class StepAnalysis(TorchDispatchMode):
             "collective_counts": {k: float(v)
                                   for k, v in self.coll_count.items()},
             "collective_total_bytes": float(sum(self.coll_bytes.values())),
+            "collective_result_bytes": {k: float(v)
+                                        for k, v in self.coll_result.items()},
             "peak_bytes": float(self.peak_bytes),
+            "peak_tensors": [dict(t) for t in self.peak_tensors],
         }
 
 
@@ -199,7 +282,9 @@ def analyze(fn, *args, **kwargs) -> Dict:
     """Run ``fn(*args, **kwargs)`` once under ``StepAnalysis`` and return
     the reference's keys: ``flops``, ``traffic_bytes``,
     ``collective_bytes`` and ``collective_counts`` (by kind) and
-    ``collective_total_bytes``, all per rank, and ``peak_bytes``.  The
+    ``collective_total_bytes``, all per rank, ``collective_result_bytes``
+    (by kind), ``peak_bytes`` and
+    ``peak_tensors``.  The
     step's output is under ``"out"``."""
     mode = StepAnalysis()
     with mode:

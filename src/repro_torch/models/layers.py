@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..dtensor import from_shards, meta_if_fake, placements
+from ..dtensor import from_shards, meta_if_fake, placements, shard_range
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -82,15 +82,7 @@ def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
         src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
                                  run_check=False)
     local, new = dst.to_local(), src.redistribute(mesh, place).to_local()
-    # this rank's first position along dim 1 (torch.chunk's pieces, the
-    # mesh dims in order)
-    start, n = 0, dst.shape[1]
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(dst.placements):
-        if p.is_shard() and p.dim == 1:
-            c = -(-n // mesh.size(i))
-            start += min(n, coord[i] * c)
-            n = max(0, min(n, (coord[i] + 1) * c) - coord[i] * c)
+    start, n = shard_range(dst.shape[1], mesh, dst.placements, 1)
     if n == 0:
         return
     at = whole(idx).to(torch.long) - start
@@ -125,17 +117,6 @@ def whole(x: torch.Tensor) -> torch.Tensor:
     """A DTensor gathered whole onto every rank, as a plain tensor (for an
     op without a sharding rule); a plain tensor as it is."""
     return x.full_tensor() if isinstance(x, DTensor) else x
-
-
-def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A plain tensor made on every rank as a replicated DTensor on
-    ``like``'s mesh, where ``like`` is a DTensor (so that its gradient
-    comes back plain); else ``t`` as it is."""
-    if not isinstance(like, DTensor) or isinstance(t, DTensor):
-        return t
-    return DTensor.from_local(t, like.device_mesh,
-                              (Replicate(),) * like.device_mesh.ndim,
-                              run_check=False)
 
 
 def _batch_entry(n: int, cfg: ModelConfig):
@@ -542,6 +523,29 @@ def _flash(q, k, v, pos_q, pos_k, causal: bool, window: int, q_block: int,
     if isinstance(q, DTensor):
         return _on_shards(run, (q, k, v), (pos_q, pos_k))
     return run(q, k, v, pos_q, pos_k)
+
+
+class _WholeSeqGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient's sequence (and
+    reduces its partial sums)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_seq(g)
+
+
+def whole_seq_grad(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, ...), whose gradient comes back with the sequence
+    whole: a matmul's output, whose backward views the gradient flat,
+    which torch 2.11's DTensor cannot do with the batch split over two
+    mesh dimensions and the sequence over a third (the split that
+    DTensor's matmul strategy may give the output).  A plain tensor as it
+    is."""
+    return _WholeSeqGrad.apply(t) if isinstance(t, DTensor) else t
 
 
 class _ContiguousGrad(torch.autograd.Function):

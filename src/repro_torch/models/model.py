@@ -176,9 +176,11 @@ def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     xn = layers.norm(x, p, cfg, "ln2")
     if cfg.family != "moe":
         return x + layers.shard_act(layers.mlp_block(p, xn, cfg), cfg), None
+    # (the experts' output takes the stream's placement already; the dense
+    # residual is a branch of its own)
     y, aux = moe.moe_block(p, xn, cfg)
     if cfg.moe_dense_residual:
-        y = y + layers.mlp_block(p, xn, cfg)
+        y = y + layers.shard_act(layers.mlp_block(p, xn, cfg), cfg)
     return x + layers.shard_act(y, cfg), aux
 
 
@@ -625,6 +627,43 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
     at a time: S padded to whole chunks with label -1, each chunk's logits
     ``(xb @ head)`` taken to f32, logsumexp - gold.  Returns (loss, the
     int32 count of labels counted)."""
+    if is_dtensor(x) and not any(q.is_shard() and q.dim == 1
+                                 for q in head.placements):
+        tot, cnt = _ce_sums_on_shards(x, head, labels, chunk)
+    else:
+        tot, cnt = _ce_sums(x, head, labels, chunk)
+    return tot / torch.clamp(cnt, min=1), cnt
+
+
+def _ce_sums_on_shards(x: torch.Tensor, head: torch.Tensor,
+                       labels: torch.Tensor, chunk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_ce_sums`` of a DTensor ``x`` whose head keeps its vocabulary
+    whole (one the TP axis does not divide, as seamless-m4t's 256,206
+    over 16: the reference's rule leaves it replicated, and the logits
+    of each chunk's whole positions would be made on every rank of that
+    axis): each rank sums the loss of its own positions, the batch as x
+    splits it and the sequence over the other mesh dimensions, with the
+    head gathered whole; the sums are reduced over the mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..dtensor import from_shards
+    mesh = x.device_mesh
+    place = [Shard(0) if q.is_shard() and q.dim == 0 else Shard(1)
+             for q in x.placements]
+    every = [Replicate()] * mesh.ndim
+    partial = [Partial()] * mesh.ndim
+    tot, cnt = _ce_sums(
+        x.redistribute(mesh, place).to_local(),
+        head.redistribute(mesh, every).to_local(grad_placements=partial),
+        labels.redistribute(mesh, place).to_local(), chunk)
+    return tuple(from_shards(t, mesh, partial, ()).redistribute(mesh, every)
+                 for t in (tot, cnt))
+
+
+def _ce_sums(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the summed cross-entropy f32, the int32 count) of
+    ``chunked_ce_loss``."""
     B, S, _ = x.shape
     nc = -(-S // chunk)
     pad = nc * chunk - S
@@ -652,7 +691,7 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
         valid = lb >= 0
         tot = tot + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum(dtype=torch.int32)
-    return tot / torch.clamp(cnt, min=1), cnt
+    return tot, cnt
 
 
 def forward_loss(params: Transformer, batch: Mapping[str, torch.Tensor],

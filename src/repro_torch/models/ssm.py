@@ -62,7 +62,7 @@ def _causal_conv_local(x, w, b):
 def _split_proj(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig):
     d_in, N = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = layers.whole_seq_grad(x @ p["in_proj"])
     z = zxbcdt[..., :d_in]
     xs = zxbcdt[..., d_in:2 * d_in]
     Bc = zxbcdt[..., 2 * d_in:2 * d_in + N]
