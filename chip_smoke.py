@@ -170,6 +170,36 @@
    Prints times beside bounds, the decode step's busy share, peak
    memory and the phase's seconds; ``fused_select`` at each phase's chunk
    joins 2's tally.
+   Then ``swa_serve_path`` serves h2o-danube-1.8b (24 layers, d_model
+   2560, 32 heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
+   sliding window 4096; 1.83 B bf16 weights from ``--seed``, the count
+   from the tensors) through its ring cache of 4096 slots: (a) 8 prompts
+   of SWA_PROMPT = 4064 tokens and 64 greedy tokens (cache_len 4128, so
+   the 33rd generated token writes slot 0); decode after ``prefill(S)``
+   against ``prefill(S + 1)`` at S = 4064 and, after teacher-forced steps
+   through the wrap, at SWA_WRAP_AT = 4100, each against the f32
+   evaluation (no cache, every query over its own window) under 9's gate;
+   the ring's slots after the steps and after ``generate`` (each slot the
+   newest position written there); ``generate`` alone and with a fused
+   ``StreamingCalibrator`` in turns, SERVE_ROUNDS rounds, the warm
+   ``scale`` over 64 ticks of 8 x 32000 logits equal to a sort bit for
+   bit with one ``fused_select`` launch per ring chunk (64; counts zeroed
+   at the phase's start); (b) 8 prompts of SWA_LONG_PROMPT = 8192 tokens:
+   the first layer's windowed blockwise attention against the direct
+   path (1e-5 of max |out|), the prefill's time and peak, the ring after
+   ``prefill(8192)`` holding positions 4096..8191 (the reference's quirk:
+   earlier queries attend over that cache alone), decode at 8192 against
+   ``prefill(8193)`` and f32 under the same gate; (c) ``generate(...,
+   greedy=False)`` twice from one seed, ``torch.multinomial`` draws
+   from a ``torch.Generator`` (not the JAX package's tokens: the
+   generators differ): the same tokens, each in [0, vocab), every decode
+   step and draw under ``torch.cuda.set_sync_debug_mode("error")``; (d)
+   with the model freed, the windowed blockwise backward on the first
+   layer's f32 q, k, v (1 x 8192 x 32 x 80, causal, window 4096) against
+   autograd through the direct formula (1e-4 of max |grad|), with its
+   peak.  Prints prefill, decode a step and tokens/s of (a) and (b)
+   beside bounds that count the ring's 4096 slots, the decode step's busy
+   share and the peak memory.
 11. Drives the training path (``repro_torch.launch.train.train_loop``) on
    stablelm-1.6b at its published width and depth (24 layers, d_model
    2048, 32 heads of 64, d_ff 5632, vocab 100352, LayerNorm with bias;
@@ -245,8 +275,9 @@
    of the peak memory rate it reaches), its plain version and the PyTorch
    calls that compute the same function, and prints one ``kernels`` JSON
    line with all six, each with its launches per
-   service query (the serve phases' ``scale`` queries among them) and on
-   the training path.
+   service query (the serve phases' ``scale`` queries among them,
+   ``swa_serve_path``'s 64 ``fused_select`` launches too) and on the
+   training path.
 
 Any failure exits non-zero.  The last line is the device record
 ``{"ok": true, "device": {...}}``; without CUDA, or without the repository
@@ -279,13 +310,18 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
-SERVE_ROUNDS = 3        # timed rounds of generate (their median)
+SERVE_ROUNDS = 2        # timed rounds of generate (their median)
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("vlm_serve_path", "qwen2-vl-2b"),
                 ("ssm_serve_path", "mamba2-1.3b"),
                 ("hybrid_serve_path", "zamba2-2.7b"),
                 ("audio_serve_path", "seamless-m4t-large-v2"))
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 4
+# the sliding-window phase (10b): (a)'s prompt, 32 short of the window, so
+# that the 33rd generated token wraps the ring; the teacher-forced position
+# past the wrap where decode is gated again; (b)'s prompt past the window
+SWA_ARCH = "h2o-danube-1.8b"
+SWA_PROMPT, SWA_WRAP_AT, SWA_LONG_PROMPT = 4064, 4100, 8192
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 3
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 # the train phases of the other families (11b): steps, olmoe-1b-7b's cut
 # depth (the deepest whose run peaks under 72 GB), the rows and tolerance
@@ -1013,10 +1049,10 @@ def _kernel_row(name, launches, kernel, plain, library, library_call,
     return row
 
 
-def _median_s(fn) -> tuple:
-    """(last result, median seconds of TIMED_RUNS runs after one warm-up)."""
+def _median_s(fn, runs: int = TIMED_RUNS) -> tuple:
+    """(last result, median seconds of ``runs`` runs after one warm-up)."""
     out, times = None, []
-    for _ in range(TIMED_RUNS + 1):
+    for _ in range(runs + 1):
         out, t = _sync_time(fn)
         times.append(t)
     return out, statistics.median(times[1:])
@@ -2166,7 +2202,9 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     bf16 rate, and the f32 attention scores and sums over the cache (the
     direct path), a moe layer's f32 router and a mamba layer's chunk scan
     (its four f32 products, over the chunks the prompt pads to) at the f32
-    rate.  A hybrid's shared block counts once per group.  An
+    rate.  A sliding-window config's cache is a ring of min(cache_len,
+    window) slots, and the attention runs over those.  A hybrid's shared
+    block counts once per group.  An
     encoder-decoder adds its encoder's layers over the B x Sf frames (Sf =
     S // enc_seq_divisor), each decoder layer's cross Q/O projections over
     the B x S tokens and cross K/V projections over the frames (bf16), and
@@ -2175,6 +2213,8 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     from repro_torch.launch import roofline
     from repro_torch.models import moe
 
+    if cfg.swa_window:
+        cache_len = min(cache_len, cfg.swa_window)
     D, F, L, T = cfg.d_model, cfg.d_ff, cfg.n_layers, B * S
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     matmul, f32 = 2 * D * cfg.vocab * B, 0
@@ -2208,23 +2248,22 @@ def _prefill_bound_s(cfg, B: int, S: int, cache_len: int) -> float:
     return matmul / roofline.PEAK_FLOPS + f32 / roofline.PEAK_FLOPS_F32
 
 
-def _long_prompt(params, cfg, seed: int) -> dict:
-    """The blockwise attention at full width: SERVE_LONG_B prompts of
-    SERVE_LONG_PROMPT tokens, past ``q_block * kv_block * 2`` scores a
-    head.  The first layer's attention, blockwise against the direct path
-    on the first prompt (f32, at most 1e-5 of max |out|) and its live
-    memory at the whole batch, which must stay within the f32 copies of
-    its operands and eight kv steps' scores, as one q block at a time
-    gives; then the whole prefill, its time and peak memory."""
+def _long_prompt(params, cfg, toks: torch.Tensor,
+                 keep_cache: bool = False):
+    """The blockwise attention at full width: the (B, S) prompts ``toks``,
+    past ``q_block * kv_block * 2`` scores a head (with the config's
+    window, if any).  The first layer's attention, blockwise against the
+    direct path on the first prompt (f32, at most 1e-5 of max |out|) and
+    its live memory at the whole batch, which must stay within the f32
+    copies of its operands and eight kv steps' scores, as one q block at a
+    time gives; then the whole prefill, its time and peak memory.  With
+    ``keep_cache``, (that dict, the prefill's cache)."""
     from repro_torch.models import layers, model
 
-    B, S = SERVE_LONG_B, SERVE_LONG_PROMPT
+    B, S = toks.shape
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if S * S <= cfg.attn_q_block * cfg.attn_kv_block * 2:
         raise AssertionError("serve long prompt: not the blockwise path")
-    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda",
-                         dtype=torch.int32)
     x, pos, _ = model._embed_inputs(params.p, {"tokens": toks}, cfg)
     p = params.blocks[0].p
     h = layers.norm(x, p, cfg, "ln1")
@@ -2265,17 +2304,40 @@ def _long_prompt(params, cfg, seed: int) -> dict:
     if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError("serve long prompt: bad logits")
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    out = {"batch": B, "prompt_len": S, "attention_rel_err": err,
+           "attention_live_bytes": attn_live,
+           "attention_live_bound_bytes": operands + 8 * scores,
+           "prefill_s": prefill_s, "prefill_peak_above_weights_bytes": peak,
+           "kv_cache_bytes": cache_bytes}
+    if keep_cache:
+        return out, cache
     del logits, cache
     torch.cuda.empty_cache()
-    return {"batch": B, "prompt_len": S, "attention_rel_err": err,
-            "attention_live_bytes": attn_live,
-            "attention_live_bound_bytes": operands + 8 * scores,
-            "prefill_s": prefill_s, "prefill_peak_above_weights_bytes": peak,
-            "kv_cache_bytes": cache_bytes}
+    return out
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _decode_gate(what: str, step, full, f32) -> dict:
+    """Decode's logits against prefill(S + 1)'s and each against the f32
+    evaluation, with ``serve_path``'s gate: decode at most 1.5 x as far
+    from f32 as the prefill; the decode-vs-prefill gap beside the JAX
+    test's 5e-2."""
+    for t in (step, full, f32):
+        if t.shape != step.shape or not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: bad logits {tuple(t.shape)}")
+    errs = {"decode_vs_prefill": _rel_err(step, full),
+            "decode_vs_f32": _rel_err(step, f32),
+            "prefill_vs_f32": _rel_err(full, f32)}
+    errs["decode_vs_prefill_within_5e-2"] = errs["decode_vs_prefill"] <= 5e-2
+    if not errs["decode_vs_f32"] <= 1.5 * errs["prefill_vs_f32"]:
+        raise AssertionError(f"{what}: decode is {errs['decode_vs_f32']} of "
+                             f"the logit scale off the f32 evaluation, more "
+                             f"than 1.5 x the prefill's "
+                             f"{errs['prefill_vs_f32']}")
+    return errs
 
 
 @torch.no_grad()
@@ -2389,17 +2451,7 @@ def serve_path(seed: int, tally) -> tuple:
     if step.shape != (B, cfg.vocab) or step.dtype != torch.float32:
         raise AssertionError(f"serve: logits {tuple(step.shape)} {step.dtype}")
     f32 = _f32_logits(params, {"tokens": tokens}, cfg)
-    consistency = {"decode_vs_prefill": _rel_err(step, full),
-                   "decode_vs_f32": _rel_err(step, f32),
-                   "prefill_vs_f32": _rel_err(full, f32)}
-    consistency["decode_vs_prefill_within_5e-2"] = (
-        consistency["decode_vs_prefill"] <= 5e-2)
-    if not (consistency["decode_vs_f32"]
-            <= 1.5 * consistency["prefill_vs_f32"]):
-        raise AssertionError(f"serve: decode is {consistency['decode_vs_f32']}"
-                             f" of the logit scale off the f32 evaluation, "
-                             f"more than 1.5 x the prefill's "
-                             f"{consistency['prefill_vs_f32']}")
+    consistency = _decode_gate("serve", step, full, f32)
     del step, full, f32
     n_params = sum(w.numel() for w in params.parameters())
     weight_bytes = sum(w.numel() * w.element_size()
@@ -2515,7 +2567,10 @@ def serve_path(seed: int, tally) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     del kc, chans, cal, threaded, plain
     torch.cuda.empty_cache()
-    long_prompt = _long_prompt(params, cfg, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    long_prompt = _long_prompt(params, cfg, torch.randint(
+        0, cfg.vocab, (SERVE_LONG_B, SERVE_LONG_PROMPT), generator=gen,
+        device="cuda", dtype=torch.int32))
     del params
     torch.cuda.empty_cache()
 
@@ -2918,6 +2973,285 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# 10b. a sliding-window model served through its ring; sampled decoding
+# ---------------------------------------------------------------------------
+
+
+def _ring_positions(W: int, last: int) -> torch.Tensor:
+    """(W,) the position each slot of a ring holds once positions 0..last
+    were written in order, position p at slot p % W: the newest p of each
+    slot (the unwritten sentinel where none)."""
+    from repro_torch.models import layers
+    j = torch.arange(W, device="cuda")
+    return torch.where(j <= last, last - (last - j) % W,
+                       layers.UNWRITTEN).to(torch.int32)
+
+
+class _SampledTap:
+    """While active: ``model.prefill`` turns on
+    ``torch.cuda.set_sync_debug_mode("error")`` as it returns, so that the
+    rest of a ``generate`` (its decode steps and its draws) raises on a host
+    sync; ``model.decode_step`` keeps the last cache it returns.  The mode
+    is back to "default" on exit."""
+
+    def __init__(self):
+        from repro_torch.models import model
+        self.model, self.cache = model, None
+
+    def __enter__(self):
+        self.prefill, self.decode = self.model.prefill, self.model.decode_step
+
+        def prefill(*a, **kw):
+            out = self.prefill(*a, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            return out
+
+        def decode(*a, **kw):
+            logits, self.cache = self.decode(*a, **kw)
+            return logits, self.cache
+
+        self.model.prefill, self.model.decode_step = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self.model.prefill, self.model.decode_step = self.prefill, self.decode
+
+
+def swa_serve_path(seed: int, tally) -> tuple:
+    """h2o-danube-1.8b at its published width and depth, weights from
+    ``--seed``, served through its ring of ``swa_window`` slots: (a)
+    SERVE_B prompts of SWA_PROMPT tokens and SERVE_GEN greedy tokens, decode
+    gated against prefill(S + 1) and f32 before the wrap and at SWA_WRAP_AT
+    after it, the ring's slots after ``generate``, the warm ``scale`` of a
+    fused calibrator against a sort; (b) prompts of SWA_LONG_PROMPT tokens,
+    the blockwise attention against the direct path and decode after the
+    ring took their last window; (c) sampled ``generate`` twice, with no
+    host sync; (d) the windowed blockwise backward at full width."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import local_ops, sketch as sk
+    from repro_torch.kernels import fused_select as fs, ref
+    from repro_torch.launch import roofline, serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    cfg = get_config(SWA_ARCH)
+    W = cfg.swa_window
+    B, S, G, at, SL = (SERVE_B, SWA_PROMPT, SERVE_GEN, SWA_WRAP_AT,
+                       SWA_LONG_PROMPT)
+    cache_len = S + G
+    if not (S < W <= at < S + G - 1 and W < SL):
+        raise AssertionError("swa serve: the shapes do not wrap the ring")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, at + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prompts = tokens[:, :S]
+    params, init_s = _sync_time(lambda: model.init_params(cfg, seed,
+                                                          device="cuda"))
+    n_params = sum(w.numel() for w in params.parameters())
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in params.parameters())
+
+    def batch(n: int) -> dict:
+        return {"tokens": tokens[:, :n]}
+
+    def position(p: int) -> torch.Tensor:
+        return torch.full((B,), p, dtype=torch.int32, device="cuda")
+
+    # (a) teacher-forced decode from prefill(S) through the wrap, gated at
+    # S and at ``at`` against prefill(p + 1) and the f32 evaluation (no
+    # cache, every query over its own window)
+    _, cache = model.prefill(params, batch(S), cfg, cache_len=cache_len)
+    if cache["k"].shape[2] != W:
+        raise AssertionError(f"swa serve: a cache of {cache['k'].shape[2]} "
+                             f"slots, not the ring's {W}")
+    steps = {}
+    for p in range(S, at + 1):
+        logits, cache = model.decode_step(params, tokens[:, p:p + 1], cache,
+                                          position(p), cfg)
+        if p in (S, at):
+            steps[p] = logits
+    if not torch.equal(cache["pos"], _ring_positions(W, at).expand_as(
+            cache["pos"])):
+        raise AssertionError(f"swa serve: the ring after position {at} does "
+                             f"not hold the newest position of each slot")
+    consistency = {}
+    for p, step in steps.items():
+        full, _ = model.prefill(params, batch(p + 1), cfg,
+                                cache_len=cache_len)
+        f32 = _f32_logits(params, batch(p + 1), cfg)
+        consistency[f"decode_at_{p}"] = _decode_gate(
+            f"{SWA_ARCH} decode at {p}", step, full, f32)
+        del full, f32
+    del steps
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    profile = _profile(lambda: model.decode_step(
+        params, tokens[:, at:at + 1], cache, position(at + 1), cfg))
+    del cache
+    torch.cuda.empty_cache()
+    # (SERVE_ROUNDS runs: a prefill here takes seconds)
+    _, prefill_s = _median_s(lambda: model.prefill(
+        params, batch(S), cfg, cache_len=cache_len), runs=SERVE_ROUNDS)
+
+    # generate alone and with a fused calibrator, in turns (as the family
+    # phases'); the tokens must not change
+    def run(cal=None):
+        return serve.generate(cfg, params, prompts, gen_len=G, calibrator=cal)
+
+    runs = {"alone": [], "sync": []}
+    toks, cal = None, None
+    for _ in range(SERVE_ROUNDS):
+        got, t = _sync_time(run)
+        runs["alone"].append(t)
+        if toks is not None and not torch.equal(got, toks):
+            raise AssertionError("swa serve: greedy tokens changed between "
+                                 "runs")
+        toks = got
+        cal = _tapped_calibrator(fused=True)
+        got, t = _sync_time(lambda: run(cal))
+        runs["sync"].append(t)
+        if not torch.equal(got, toks):
+            raise AssertionError("swa serve: tokens changed with a "
+                                 "calibrator")
+    gen_s, gen_sync_s = (statistics.median(runs[k]) for k in runs)
+    launches = {k: c for k, c in K.launches().items() if c}
+
+    # the warm scale against a sort of every observed |logit|
+    observed = torch.cat([t.reshape(-1) for t in cal.seen]).abs()
+    n = observed.numel()
+    k = local_ops.target_rank(n, SERVE_Q)
+    want = torch.sort(observed).values[k - 1].clone()
+    del observed
+    if cal.observed("logits") != n:
+        raise AssertionError(f"swa serve: observed {cal.observed('logits')} "
+                             f"!= {n}")
+    got, per_query = _scale_query(cal, True)
+    _check_bits("swa serve scale", got, want)
+    for kname, c in per_query["launches"].items():
+        launches[kname] = launches.get(kname, 0) + c
+    again, scale_s = _median_s(lambda: cal.scale("logits"))
+    _check_bits("swa serve scale again", again, want)
+    svc = cal.service
+    slot = svc._names["logits"]
+    chunk = svc._chunks_for(slot)[0][None]
+    pivot = sk.sketch_query_rank(svc._row_state(slot), k)
+    cap = min(chunk.shape[1], _warm_phases(svc, "logits", SERVE_Q)["cap"])
+    tally.add("fused_select", _same_bits(fs.fused_select(chunk, pivot, cap),
+                                         ref.fused_select_ref(chunk, pivot,
+                                                              cap)),
+              f"swa_serve_path chunk 1 x {chunk.shape[1]} cap={cap}")
+    cal.close()
+    del cal
+
+    # (c) sampled decoding twice from one seed, no host sync after the
+    # prefill; the ring after the last step holds the newest positions
+    sampled, sampled_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _SampledTap() as tap:
+            got = serve.generate(cfg, params, prompts, gen_len=G,
+                                 greedy=False, seed=seed + 3)
+        torch.cuda.synchronize()
+        sampled.append(got)
+        sampled_s.append(time.perf_counter() - t0)
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("swa serve: sampled tokens differ under one seed")
+    if not (int(sampled[0].min()) >= 0
+            and int(sampled[0].max()) < cfg.vocab):
+        raise AssertionError("swa serve: a sampled token out of the vocab")
+    ring = tap.cache["pos"]
+    if ring.shape[2] != W or not torch.equal(ring, _ring_positions(
+            W, S + G - 2).expand_as(ring)):
+        raise AssertionError("swa serve: the ring after generate does not "
+                             "hold the newest position of each slot")
+    ring_slots = {"width": ring.shape[2],
+                  "slots_0_to_4": ring[0, 0, :5].tolist(),
+                  "slots_29_to_33": ring[0, 0, 29:34].tolist()}
+    del tap, ring
+
+    # (b) prompts past the window: the blockwise attention against the
+    # direct path, then decode at SL after prefill(SL) (the ring holds the
+    # prompt's last window) against prefill(SL + 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    long_toks = torch.randint(0, cfg.vocab, (B, SL + 1), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    long_prompt, cache = _long_prompt(params, cfg, long_toks[:, :SL],
+                                      keep_cache=True)
+    if not torch.equal(cache["pos"], torch.arange(
+            SL - W, SL, dtype=torch.int32, device="cuda").expand_as(
+                cache["pos"])):
+        raise AssertionError("swa serve: prefill past the window did not "
+                             "write its last window")
+    step, cache = model.decode_step(params, long_toks[:, SL:], cache,
+                                    position(SL), cfg)
+    full, _ = model.prefill(params, {"tokens": long_toks}, cfg)
+    f32 = _f32_logits(params, {"tokens": long_toks}, cfg)
+    consistency[f"decode_at_{SL}"] = _decode_gate(
+        f"{SWA_ARCH} decode at {SL}", step, full, f32)
+    del step, full, f32
+    _, long_decode_s = _median_s(lambda: model.decode_step(
+        params, long_toks[:, SL:], cache, position(SL), cfg))
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+
+    # (d) the windowed blockwise backward on the first layer's q, k, v of
+    # the first long prompt, with the model freed
+    q, k_, v, pos = _first_layer_qkv(params, cfg, long_toks[:1, :SL])
+    del params, long_toks
+    torch.cuda.empty_cache()
+    flash_backward = _flash_grads_check(q, k_, v, pos, pos, causal=True,
+                                        window=W, q_block=cfg.attn_q_block,
+                                        kv_block=cfg.attn_kv_block)
+    del q, k_, v
+    torch.cuda.empty_cache()
+
+    decode_bound = (weight_bytes + cache_bytes) / roofline.HBM_BW
+    decode_s = (gen_s - prefill_s) / (G - 1)
+    return {
+        "arch": SWA_ARCH, "params": n_params,
+        "param_count_formula": cfg.param_count(), "weight_bytes": weight_bytes,
+        "window": W, "batch": B, "prompt_len": S, "gen_len": G,
+        "cache_len": cache_len, "ring_slots": ring_slots,
+        "kv_cache_bytes": cache_bytes, "init_s": init_s,
+        "consistency_rel_err": consistency,
+        "prefill_median_s": prefill_s,
+        "prefill_bound_s": _prefill_bound_s(cfg, B, S, cache_len),
+        "generate_median_s": gen_s, "generate_runs_s": runs,
+        "decode_s_per_step": decode_s,
+        "decode_bound_s_per_step": decode_bound,
+        "decode_busy_share": profile.get("device_busy_share"),
+        "tokens_per_s": B * G / gen_s,
+        "generate_calibrated_sync_median_s": gen_sync_s,
+        "calibration_s_per_step_sync": (gen_sync_s - gen_s) / G,
+        "observed_values": n, "q": SERVE_Q, "scale": float(want),
+        "scale_fused_median_s": scale_s, "per_query": per_query,
+        "phase_launches": launches,
+        "sampled": {"seed": seed + 3, "generate_s": sampled_s,
+                    "same_tokens_twice": True,
+                    "tokens_unlike_greedy": int((sampled[0] != toks).sum()),
+                    "host_sync": "none (set_sync_debug_mode error)"},
+        "long_prompt": {
+            **long_prompt, "cache_len": SL,
+            "prefill_bound_s": _prefill_bound_s(cfg, B, SL, SL),
+            "decode_s_per_step": long_decode_s,
+            "decode_bound_s_per_step": decode_bound,
+            "decode_tokens_per_s": B / long_decode_s},
+        "flash_backward": flash_backward,
+        "peak_memory_bytes": peak, "allocated_before_bytes": base,
+        "profile_decode_step": profile,
+        "wall_s": time.perf_counter() - t_phase,
+    }, {"scale_fused": per_query}
+
+
+# ---------------------------------------------------------------------------
 # 11. the training path: stablelm-1.6b through train_loop
 # ---------------------------------------------------------------------------
 
@@ -3042,22 +3376,28 @@ def _flash_grads_check(q, k, v, pos_q, pos_k, *, causal: bool,
             "direct_backward_s": direct_s}
 
 
+@torch.no_grad()
+def _first_layer_qkv(params, cfg, tokens: torch.Tensor) -> tuple:
+    """The first layer's rotated q and k and its v for ``tokens`` (B, S),
+    each (B, S, heads, dh) in f32, and the positions."""
+    from repro_torch.models import layers, model
+
+    B, S = tokens.shape
+    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    x, pos, _ = model._embed_inputs(params.p, {"tokens": tokens}, cfg)
+    p = params.blocks[0].p
+    h = layers.norm(x, p, cfg, "ln1")
+    q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
+                              cfg.rope_theta).float()
+            for w, n in (("wq", NH), ("wk", KV)))
+    v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
+    return q, k, v, pos
+
+
 def _flash_backward_check(params, cfg, batch) -> dict:
     """``_flash_grads_check`` at full width on the first layer's q, k, v
     (in f32) for the training batch (causal)."""
-    from repro_torch.models import layers, model
-
-    B, S = batch["tokens"].shape
-    NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    with torch.no_grad():
-        x, pos, _ = model._embed_inputs(params.p, batch, cfg)
-        p = params.blocks[0].p
-        h = layers.norm(x, p, cfg, "ln1")
-        q, k = (layers.apply_rope((h @ p[w]).reshape(B, S, n, dh), pos,
-                                  cfg.rope_theta).float()
-                for w, n in (("wq", NH), ("wk", KV)))
-        v = (h @ p["wv"]).reshape(B, S, KV, dh).float()
-        del x, h
+    q, k, v, pos = _first_layer_qkv(params, cfg, batch["tokens"])
     return _flash_grads_check(q, k, v, pos, pos, causal=True,
                               window=cfg.swa_window,
                               q_block=cfg.attn_q_block,
@@ -4034,6 +4374,14 @@ def main() -> int:
                 f"{name}.{query}": counts["launches"][row["name"]]
                 for query, counts in family_launches.items()
                 if row["name"] in counts["launches"]})
+    result, swa_launches = swa_serve_path(args.seed, tally)
+    print(json.dumps({"swa_serve_path": result}), flush=True)
+    lap("swa_serve_path")
+    for row in kernels:
+        row["service_launches_per_query"].update({
+            f"swa_serve_path.{query}": counts["launches"][row["name"]]
+            for query, counts in swa_launches.items()
+            if row["name"] in counts["launches"]})
     K.reset_launches()
     result = train_path(args.seed)
     print(json.dumps({"train_path": result}), flush=True)

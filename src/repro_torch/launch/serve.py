@@ -24,6 +24,9 @@ Usage:
       --device cpu --calibrate          # or zamba2-2.7b
   python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
       --reduced --device cpu            # zero frames, prompt_len // 4
+  python -m repro_torch.launch.serve --arch h2o-danube-1.8b --reduced \\
+      --device cpu --prompt-len 24 --gen-len 16 --calibrate
+                                        # the sliding-window ring wraps
 """
 from __future__ import annotations
 

@@ -64,6 +64,20 @@ def whole_seq(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return gather_dims(x, (1,)) if x is not None else x
 
 
+def _own_shard(dst: DTensor, src: torch.Tensor) -> tuple:
+    """(dst's local shard, src placed as dst with dim 1 whole, the first
+    index and length of dst's shard of dim 1), for a write into the slots
+    of dim 1 that this rank holds."""
+    mesh = dst.device_mesh
+    place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == 1)
+             else p for p in dst.placements]
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    return (dst.to_local(), src.redistribute(mesh, place).to_local(),
+            *shard_range(dst.shape[1], mesh, dst.placements, 1))
+
+
 def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
                  src: torch.Tensor) -> None:
     """``dst[:, idx] = src`` in place, in dst's dtype.  ``index_copy_``
@@ -75,14 +89,7 @@ def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
         return
     if idx.numel() != 1:
         raise ValueError("a sharded cache takes one slot a write")
-    mesh = dst.device_mesh
-    place = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == 1)
-             else p for p in dst.placements]
-    if not isinstance(src, DTensor):
-        src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
-                                 run_check=False)
-    local, new = dst.to_local(), src.redistribute(mesh, place).to_local()
-    start, n = shard_range(dst.shape[1], mesh, dst.placements, 1)
+    local, new, start, n = _own_shard(dst, src)
     if n == 0:
         return
     at = whole(idx).to(torch.long) - start
@@ -90,6 +97,22 @@ def _write_slots(dst: torch.Tensor, idx: torch.Tensor,
     at = at.clamp(0, n - 1)
     local.index_copy_(1, at, torch.where(mine, new.to(local.dtype),
                                          local.index_select(1, at)))
+
+
+def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, :n] = src`` in place, n = ``src.shape[1]``.  A DTensor
+    split along dim 1 (the cache of a batch that the batch axes do not
+    divide splits its sequence there) cannot take a slice's write: DTensor
+    gathers the slice into a copy and writes that.  Each rank writes the
+    slots its shard holds instead, with no communication."""
+    if not (isinstance(dst, DTensor)
+            and any(p.is_shard() and p.dim == 1 for p in dst.placements)):
+        dst[:, :src.shape[1]] = src
+        return
+    local, new, start, n = _own_shard(dst, src)
+    stop = min(start + n, src.shape[1])
+    if stop > start:
+        local[:, :stop - start] = new[:, start:stop].to(local.dtype)
 
 
 def heads_view(t: torch.Tensor, *shape: int) -> torch.Tensor:
@@ -122,6 +145,30 @@ def whole(x: torch.Tensor) -> torch.Tensor:
 def _batch_entry(n: int, cfg: ModelConfig):
     return cfg.batch_axes if (cfg.batch_axes and n % cfg.dp_size == 0) \
         else None
+
+
+def batch_whole(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                cfg: ModelConfig) -> Mapping[str, torch.Tensor]:
+    """A block's weights ``p`` with their shards on the batch axes
+    gathered (FSDP's all-gather) where ``x``'s batch is one that those
+    axes do not divide (3 rows over a "data" axis of 2); ``p`` as it is
+    otherwise, and off a mesh.  Such a batch stays whole on the batch
+    axes (``shard_act``), and DTensor's product would split the weight's
+    contracting d_model there instead: its partial sums, scattered over
+    the batch by the next nonlinearity, make an uneven batch shard that
+    no later view can flatten."""
+    if (not cfg.batch_axes or not isinstance(x, DTensor)
+            or _batch_entry(x.shape[0], cfg) is not None):
+        return p
+    out = {}
+    for name, w in p.items():
+        if isinstance(w, DTensor):
+            names = w.device_mesh.mesh_dim_names
+            place = [Replicate() if names[i] in cfg.batch_axes else q
+                     for i, q in enumerate(w.placements)]
+            w = w.redistribute(w.device_mesh, place)
+        out[name] = w
+    return out
 
 
 def shard_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -297,6 +344,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # on a mesh the grouped (KV, G) split needs whole heads: KV may not
         # divide the TP axis
         q = gather_dims(q, (2,))
+        # and whole dh in the keys (a prefill cache splits it, as a decode
+        # cache does where "model" does not divide its slots): the scores'
+        # partial sums would otherwise be scattered over a batch that the
+        # mesh may not divide
+        k = gather_dims(k, (3,))
         # a fill on the device: a host tensor copied over would sync
         scale = torch.full((), dh ** -0.5, dtype=torch.bfloat16,
                            device=q.device)
@@ -624,6 +676,7 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     0..Sk-1 (the encoder-decoder passes ``causal=False``)."""
     B, S, D = x.shape
     NH, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = batch_whole(p, x, cfg)
     x, xkv = whole_seq(x), whole_seq(xkv)
     src = x if xkv is None else xkv
     Sk = src.shape[1]
@@ -650,9 +703,9 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             k_w, v_w, p_w = k, v, positions
         S_w = k_w.shape[1]
         if kv_len is None or S > S_cache:
-            ck[:, :S_w] = k_w
-            cv[:, :S_w] = v_w
-            cpos[:, :S_w] = p_w
+            _write_prefix(ck, k_w)
+            _write_prefix(cv, v_w)
+            _write_prefix(cpos, p_w)
         else:
             # a device-side slot (no host sync), clamped as the reference's
             # dynamic_update_slice clamps its start
@@ -678,6 +731,7 @@ def attn_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def mlp_block(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    p = batch_whole(p, x, cfg)
     x = whole_seq(x)
     if cfg.mlp_type == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

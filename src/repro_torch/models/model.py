@@ -660,6 +660,24 @@ def _ce_sums_on_shards(x: torch.Tensor, head: torch.Tensor,
                  for t in (tot, cnt))
 
 
+def _pad_seq(t: torch.Tensor, pad: int, value) -> torch.Tensor:
+    """``t`` (B, S, ...) with ``pad`` positions of ``value`` after its
+    sequence.  A DTensor gathers its sequence and pads each rank's shard:
+    DTensor's own pad fails on torch 2.11 (an IndexError in its
+    redistribution planner), and on 2.13, at a batch that the batch axes
+    do not divide, its backward splits the logits' gradient over that
+    batch unevenly, which the head's product cannot flatten."""
+    widths = (0, 0) * (t.ndim - 2) + (0, pad)
+    if not is_dtensor(t):
+        return torch.nn.functional.pad(t, widths, value=value)
+    from ..dtensor import from_shards
+    t = layers.whole_seq(t)
+    shape = (t.shape[0], t.shape[1] + pad, *t.shape[2:])
+    return from_shards(torch.nn.functional.pad(t.to_local(), widths,
+                                               value=value),
+                       t.device_mesh, t.placements, shape)
+
+
 def _ce_sums(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the summed cross-entropy f32, the int32 count) of
@@ -668,8 +686,8 @@ def _ce_sums(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     nc = -(-S // chunk)
     pad = nc * chunk - S
     if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        x = _pad_seq(x, pad, 0.0)
+        labels = _pad_seq(labels, pad, -1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int32, device=x.device)
     # on a mesh: the head's d_model gathered once (FSDP), its vocab left

@@ -3,7 +3,9 @@ from JAX's ``init_params``, carried over by ``params_from_numpy``) runs
 its train step, prefill and one decode step on a gloo world of 4 ranks, a
 2 x 2 ("data", "model") mesh, with ``sharding.distribute_params`` and the
 batch and cache placed by the reference's rules; the same steps run plain
-in this process.
+in this process.  Two batches, in the same world: B = 4, which "data"
+divides, and B = 3, which it does not (the batch and the caches then split
+their sequence over "data", as the reference's rule does).
 
 Tolerances, ``test_torch_train.py``'s f32 ones: the loss within 1e-6, each
 gradient within 1e-5 of its leaf's max |g|, the logits within 1e-5 of
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.testing import run_world                     # noqa: E402
 
 B, S, NEW = 4, 64, 1
+B_UNEVEN = 3              # a batch that the "data" axis of 2 does not divide
 TIME_LIMIT_S = 240
 
 
@@ -31,9 +34,9 @@ def _cfg():
                                param_dtype="float32")
 
 
-def _batch(cfg, seed=0):
+def _batch(cfg, b=B, seed=0):
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32)
+    tokens = rng.integers(0, cfg.vocab, size=(b, S), dtype=np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -1] = -1
     return {"tokens": torch.from_numpy(tokens),
@@ -46,13 +49,14 @@ def _steps(params, cfg, batch, mesh):
     or on ``mesh``; tensors come back whole, on the host."""
     from repro_torch.dtensor import is_dtensor
     from repro_torch.launch import sharding as shd, steps
-    from repro_torch.models import model
+    from repro_torch.models import layers, model
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.pytree import leaves, paths
 
     def whole(t):
         return (t.full_tensor() if is_dtensor(t) else t).detach()
 
+    B = batch["tokens"].shape[0]
     prompt = {"tokens": batch["tokens"]}
     if mesh is not None:
         batch, prompt = (steps.distribute_inputs(
@@ -95,7 +99,7 @@ def _steps(params, cfg, batch, mesh):
         place = shd.placements_tree(mesh, shd.cache_shardings(
             mesh, cache, cfg, B, decode=True))
         cache = steps.redistribute_tree(cache, place, mesh)
-        b = ("data",)
+        b = layers._batch_entry(B, cfg)
         token, clen = steps.distribute_inputs(
             (token, clen), (shd.placements((b, None), mesh),
                             shd.placements((b,), mesh)), mesh)
@@ -111,6 +115,7 @@ def rank_main(rank, world, store, weights, out):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import mesh_cfg
     from repro_torch.models import model
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
@@ -120,7 +125,10 @@ def rank_main(rank, world, store, weights, out):
             params = model.params_from_numpy(cfg, pickle.load(f),
                                               device="cpu")
         shd.distribute_params(params, mesh)
-        res = _steps(params, cfg, _batch(cfg), mesh)
+        # the steps restore the weights they update: both batches start
+        # from the same ones
+        res = {b: _steps(params, cfg, _batch(cfg, b), mesh)
+               for b in (B, B_UNEVEN)}
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(res, f)
@@ -147,13 +155,13 @@ def results(tmp_path_factory):
     with open(out, "rb") as f:
         sharded = pickle.load(f)
     cfg = _cfg()
-    plain = _steps(model.params_from_numpy(cfg, tree, device="cpu"), cfg,
-                   _batch(cfg), None)
-    return plain, sharded
+    params = model.params_from_numpy(cfg, tree, device="cpu")
+    return {b: (_steps(params, cfg, _batch(cfg, b), None), sharded[b])
+            for b in (B, B_UNEVEN)}
 
 
-def test_loss_and_gradients_match_the_plain_step(results):
-    (loss, grads, _, _, _), (s_loss, s_grads, _, _, _) = results
+def _check_loss_and_gradients(plain, sharded):
+    (loss, grads, _, _, _), (s_loss, s_grads, _, _, _) = plain, sharded
     assert abs(s_loss - loss) <= 1e-6
     assert set(s_grads) == set(grads)
     for path, g in grads.items():
@@ -161,9 +169,8 @@ def test_loss_and_gradients_match_the_plain_step(results):
         assert float((s_grads[path] - g).abs().max()) <= 1e-5 * scale, path
 
 
-def test_clip_threshold_is_the_sort_of_the_sharded_gradients(results):
+def _check_clip_threshold(plain, sharded):
     from repro_torch.core import local_ops
-    plain, sharded = results
     _, s_grads, s_thr, _, _ = sharded
     g = torch.cat([t.reshape(-1).abs().float() for t in s_grads.values()])
     k = local_ops.target_rank(g.numel(), 0.999)
@@ -173,9 +180,34 @@ def test_clip_threshold_is_the_sort_of_the_sharded_gradients(results):
             k - 1])
 
 
-def test_prefill_and_decode_logits_match_the_plain_steps(results):
-    plain, sharded = results
+def _check_logits(plain, sharded, b):
     for got, want in ((sharded[3], plain[3]), (sharded[4], plain[4])):
-        assert got.shape == want.shape == (B, _cfg().vocab)
+        assert got.shape == want.shape == (b, _cfg().vocab)
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_loss_and_gradients_match_the_plain_step(results):
+    _check_loss_and_gradients(*results[B])
+
+
+def test_clip_threshold_is_the_sort_of_the_sharded_gradients(results):
+    _check_clip_threshold(*results[B])
+
+
+def test_prefill_and_decode_logits_match_the_plain_steps(results):
+    _check_logits(*results[B], B)
+
+
+def test_uneven_batch_loss_and_gradients_match_the_plain_step(results):
+    """B = 3 on "data" = 2: the step splits the sequence there."""
+    _check_loss_and_gradients(*results[B_UNEVEN])
+
+
+def test_uneven_batch_clip_threshold_is_the_sort_of_its_gradients(results):
+    _check_clip_threshold(*results[B_UNEVEN])
+
+
+def test_uneven_batch_prefill_and_decode_logits_match_the_plain_steps(
+        results):
+    _check_logits(*results[B_UNEVEN], B_UNEVEN)
