@@ -41,7 +41,7 @@
    ``full_sort_quantile``, ``psrs_sort``, ``afs_select`` and
    ``jeffers_select`` at q = 0.5 and 0.99, each equal bit for bit to 4's
    sort oracle (and ``psrs_sort``'s whole output to the stable sort), each
-   one's median of 5 runs after a warm-up, peak memory and the
+   one's median of BASELINE_RUNS runs after a warm-up, peak memory and the
    count-and-discard rounds, printed beside ``gk_select``'s median (one
    card against one card, not the paper's cluster); then both selects on
    (P, 2^16) arrays whose lowest and highest 2% are the dtype's extremes
@@ -200,6 +200,19 @@
    peak.  Prints prefill, decode a step and tokens/s of (a) and (b)
    beside bounds that count the ring's 4096 slots, the decode step's busy
    share and the peak memory.
+   Then ``deepseek_serve_path`` serves deepseek-coder-33b (62 layers,
+   d_model 7168, 56 heads over 8 KV heads of 128, d_ff 19200 SwiGLU,
+   vocab 32256; 33.34 B bf16 weights from ``--seed``, 66.7 GB of the
+   card's 80) as the families above, nothing cut: the gate of 9 (the f32
+   evaluation casts a layer at a time), the gap printed beside 5e-2 and
+   beside both packages' CPU readings of its layer stack at 4 and 8
+   layers (DECODE_GAP_CPU), the same greedy tokens in each of
+   DEEPSEEK_ROUNDS rounds with and without a calibrator, the warm
+   ``scale`` over 64 ticks of 8 x 32256 logits against its sort with one
+   ``fused_select`` launch per ring chunk; once
+   the generates' caches are gone, ``calibrate_int8_scale`` over the
+   decode's K cache of all 62 layers (292,552,704 values) against its
+   sort, with its launches; the free memory at the phase's start.
 11. Drives the training path (``repro_torch.launch.train.train_loop``) on
    stablelm-1.6b at its published width and depth (24 layers, d_model
    2048, 32 heads of 64, d_ff 5632, vocab 100352, LayerNorm with bias;
@@ -310,7 +323,7 @@ WORLD = 6                          # ranks of the sharded phase, on one card
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 8, 512, 64
 SERVE_Q = 0.999
 SERVE_LONG_B, SERVE_LONG_PROMPT = 8, 4096   # prompts for the blockwise path
-SERVE_ROUNDS = 2        # timed rounds of generate (their median)
+SERVE_ROUNDS = 1        # timed rounds of generate (their median)
 FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
                 ("vlm_serve_path", "qwen2-vl-2b"),
                 ("ssm_serve_path", "mamba2-1.3b"),
@@ -321,7 +334,22 @@ FAMILY_ARCHS = (("moe_serve_path", "olmoe-1b-7b"),
 # past the wrap where decode is gated again; (b)'s prompt past the window
 SWA_ARCH = "h2o-danube-1.8b"
 SWA_PROMPT, SWA_WRAP_AT, SWA_LONG_PROMPT = 4064, 4100, 8192
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 3
+# the configuration whose bf16 weights fill the card (10c), and the bf16
+# decode gap of its layer stack in both packages on the CPU at its own
+# widths, cut to 4 and 8 of its 62 layers (tests/_decode_gap.py
+# family_gaps, B = 2, S = 64; ROADMAP.md Queue 3 item 3), printed beside
+# the card's
+DEEPSEEK_ARCH, DEEPSEEK_ROUNDS = "deepseek-coder-33b", 2
+DECODE_GAP_CPU = {DEEPSEEK_ARCH: {
+    "4_layers": {"jax": {"gap": 0.01622, "decode_vs_f32": 0.03041,
+                         "prefill_vs_f32": 0.02895},
+                 "port": {"gap": 0.01942, "decode_vs_f32": 0.0284,
+                          "prefill_vs_f32": 0.02663}},
+    "8_layers": {"jax": {"gap": 0.03137, "decode_vs_f32": 0.04286,
+                         "prefill_vs_f32": 0.04169},
+                 "port": {"gap": 0.02621, "decode_vs_f32": 0.04114,
+                          "prefill_vs_f32": 0.0394}}}}
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "stablelm-1.6b", 8, 2048, 2
 TRAIN_Q, TRAIN_RESUME_LAYERS = 0.999, 2
 # the train phases of the other families (11b): steps, olmoe-1b-7b's cut
 # depth (the deepest whose run peaks under 72 GB), the rows and tolerance
@@ -396,6 +424,7 @@ DRYRUN_CELLS = (("granite-8b", "decode_32k", "pod1"),
 SHARDED_TRAIN = (("stablelm-1.6b", None), ("olmoe-1b-7b", 2))
 DRYRUN_LIMIT_S = 600
 TIMED_RUNS = 5
+BASELINE_RUNS = 2       # timed runs of each baseline after its warm-up
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.float64)
 U32_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -1168,7 +1197,7 @@ def baselines_path(x, want_multi, gk_median_s: float) -> dict:
     ``full_sort_quantile``, ``psrs_sort``, ``afs_select`` and
     ``jeffers_select`` at q = 0.5 and 0.99, each equal bit for bit to the
     main path's sort oracle, and ``psrs_sort``'s output equal to the stable
-    sort element for element; each one's median of TIMED_RUNS after a
+    sort element for element; each one's median of BASELINE_RUNS after a
     warm-up, its peak memory, the count-and-discard rounds, and the full
     sort beside ``gk_select``.  Then the count-and-discard selects at the
     dtype extremes, each equal to a sort.  The baselines launch none of
@@ -1190,7 +1219,7 @@ def baselines_path(x, want_multi, gk_median_s: float) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         times, got = [], None
-        for _ in range(TIMED_RUNS + 1):
+        for _ in range(BASELINE_RUNS + 1):
             got = None                       # free the last result first
             got, t = _sync_time(fn)
             times.append(t)
@@ -2419,7 +2448,6 @@ def serve_path(seed: int, tally) -> tuple:
     with exact int8 calibration of the logits (streaming, fused, plain and
     threaded) and of the K cache (one-shot, per tensor and per channel),
     each scale equal bit for bit to a sort on the card."""
-    import repro_torch.kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import local_ops, sketch as sk
     from repro_torch.kernels import fused_select as fs, ref
@@ -2543,20 +2571,9 @@ def serve_path(seed: int, tally) -> tuple:
     # one-shot: the K cache of every layer, and the last layer's channels
     kc = kv["k"]
     del kv
-    one_shot = {"k_cache_values": kc.numel()}
-    K.reset_launches()
-    got, one_shot["scale_median_s"] = _median_s(
-        lambda: serve.calibrate_int8_scale(kc))
-    one_shot["scale_launches"] = {a: b for a, b in K.launches().items() if b}
-    flat = kc.float().abs().reshape(-1)
-    _check_bits("calibrate_int8_scale", got,
-                torch.sort(flat).values[local_ops.target_rank(
-                    flat.numel(), SERVE_Q) - 1])
-    del flat
+    one_shot, _ = _one_shot_k_cache(kc)
     torch.cuda.empty_cache()
     chans = kc[-1].reshape(B * (S + G), cfg.n_kv_heads * cfg.d_head)
-    _, one_shot["scales_first_s"] = _sync_time(
-        lambda: serve.calibrate_int8_scales(chans, axis=-1))
     got, one_shot["scales_s"] = _sync_time(
         lambda: serve.calibrate_int8_scales(chans, axis=-1))
     one_shot["channels"], one_shot["values_per_channel"] = (chans.shape[1],
@@ -2741,8 +2758,8 @@ def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
         step, cache = model.decode_step(params, tokens[:, S:], cache, at_s,
                                         cfg)
         step_calls = tap.take()
-        full, _ = model.prefill(params, batch(S + 1), cfg,
-                                cache_len=cache_len)
+        full = model.prefill(params, batch(S + 1), cfg,
+                             cache_len=cache_len)[0]
         full_calls = tap.take()
         f32 = _f32_logits(params, batch(S + 1), cfg)
         f32_calls = tap.take()
@@ -2752,6 +2769,7 @@ def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
     errs = {"decode_vs_prefill": _rel_err(step, full),
             "decode_vs_f32": _rel_err(step, f32),
             "prefill_vs_f32": _rel_err(full, f32)}
+    errs["decode_vs_prefill_within_5e-2"] = errs["decode_vs_prefill"] <= 5e-2
     rows = torch.ones(B, dtype=torch.bool, device="cuda")
     routing = None
     if cfg.family == "moe":
@@ -2791,18 +2809,45 @@ def _consistency(params, cfg, batch, tokens, at_s, cache_len: int,
     return errs, routing, cache
 
 
-def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
-    """``arch`` (the moe, vlm, ssm, hybrid or audio family) at its published
-    width and depth, weights from ``--seed``: SERVE_B prompts of
+def _one_shot_k_cache(kc: torch.Tensor) -> tuple:
+    """``serve.calibrate_int8_scale`` over the K cache of every layer (its
+    unwritten slots hold zeros) against a sort of every |value| on the
+    card, bit for bit: (its record, the launches of one call with every
+    count zeroed just before it)."""
+    from repro_torch.core import local_ops
+    from repro_torch.launch import serve
+
+    got, counts = _counted(lambda: serve.calibrate_int8_scale(kc))
+    again, scale_s = _median_s(lambda: serve.calibrate_int8_scale(kc))
+    flat = kc.float().abs().reshape(-1)
+    want = torch.sort(flat).values[local_ops.target_rank(flat.numel(),
+                                                         SERVE_Q) - 1]
+    del flat
+    _check_bits("calibrate_int8_scale", got, want)
+    _check_bits("calibrate_int8_scale again", again, want)
+    return {"k_cache_values": kc.numel(), "scale": float(want),
+            "scale_median_s": scale_s,
+            "scale_launches": counts["launches"]}, counts
+
+
+def family_serve_path(name: str, arch: str, seed: int, tally,
+                      one_shot: bool = False,
+                      rounds: int = SERVE_ROUNDS) -> tuple:
+    """``arch`` (the moe, vlm, ssm, hybrid or audio family, or a dense
+    config) at its published width and depth, weights from ``--seed``:
+    SERVE_B prompts of
     SERVE_PROMPT positions (a vision_stub's first ``frontend_len`` are
     patch embeddings; an encoder-decoder's encoder reads SERVE_PROMPT //
     ``enc_seq_divisor`` N(0, 1) frames a prompt, whole for every prefix),
-    SERVE_GEN greedy tokens each, the logits calibrated by a
+    SERVE_GEN greedy tokens each (``rounds`` rounds of ``generate`` alone
+    and with a calibrator), the logits calibrated by a
     fused ``StreamingCalibrator`` whose warm ``scale`` must equal a sort on
     the card bit for bit.  A mamba model also holds its first layer's
-    chunked scan against the recurrence (``_scan_check``).  Every launch
-    count is zeroed at the start and read at the end; ``fused_select``
-    must have launched."""
+    chunked scan against the recurrence (``_scan_check``).  With
+    ``one_shot``, the decode's K cache of every layer is kept and, once
+    the generates are done, calibrated in one shot (``_one_shot_k_cache``).
+    Every launch count is zeroed at the start and read at the end;
+    ``fused_select`` must have launched."""
     import repro_torch.kernels as K
     from repro_torch import pytree
     from repro_torch.configs import get_config
@@ -2815,6 +2860,7 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    free_at_start = torch.cuda.mem_get_info()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     cfg = get_config(arch)
@@ -2882,6 +2928,7 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         params, batch(S), cfg, cache_len=S + G))
     profile = _profile(lambda: model.decode_step(params, tokens[:, S:],
                                                  cache, at_s, cfg))
+    k_cache = cache["k"] if one_shot else None
     del cache
     torch.cuda.empty_cache()
 
@@ -2893,7 +2940,7 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
 
     runs = {"alone": [], "sync": []}
     toks, cal = None, None
-    for _ in range(SERVE_ROUNDS):
+    for _ in range(rounds):
         got, t = _sync_time(run)
         runs["alone"].append(t)
         if toks is not None and not torch.equal(got, toks):
@@ -2937,8 +2984,15 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
                                                               cap)),
               f"{name} chunk 1 x {chunk.shape[1]} cap={cap}")
     cal.close()
+    del cal, svc, chunk
+    torch.cuda.empty_cache()
+    queries = {"scale_fused": per_query}
+    one_shot_record = None
+    if one_shot:
+        one_shot_record, queries["one_shot"] = _one_shot_k_cache(k_cache)
+        del k_cache
     peak = torch.cuda.max_memory_allocated()
-    del params, cal
+    del params
     torch.cuda.empty_cache()
 
     decode_s = (gen_s - prefill_s) / (G - 1)
@@ -2952,6 +3006,7 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         "gen_len": G, "cache_len": S + G, "kv_cache_bytes": cache_bytes,
         "recurrent_state_bytes": state_bytes,
         "init_s": init_s, "consistency_rel_err": consistency,
+        "decode_gap_cpu": DECODE_GAP_CPU.get(arch),
         "routing": routing, "moe_formula": moe_formula, "scan_check": scan,
         "prefill_median_s": prefill_s,
         "prefill_bound_s": _prefill_bound_s(cfg, B, S, S + G),
@@ -2966,10 +3021,13 @@ def family_serve_path(name: str, arch: str, seed: int, tally) -> tuple:
         "calibration_s_per_step_sync": (gen_sync_s - gen_s) / G,
         "observed_values": n, "q": SERVE_Q, "scale": float(want),
         "scale_fused_median_s": scale_s, "per_query": per_query,
+        "one_shot": one_shot_record,
         "phase_launches": launches, "peak_memory_bytes": peak,
-        "allocated_before_bytes": base, "profile_decode_step": profile,
+        "allocated_before_bytes": base,
+        "mem_get_info_at_start_bytes": free_at_start,
+        "profile_decode_step": profile,
         "wall_s": time.perf_counter() - t_phase,
-    }, {"scale_fused": per_query}
+    }, queries
 
 
 # ---------------------------------------------------------------------------
@@ -4356,32 +4414,27 @@ def main() -> int:
     lap("sharded_path")
     del x, values, keys
     torch.cuda.empty_cache()
-    result, serve_launches = serve_path(args.seed, tally)
-    print(json.dumps({"serve_path": result}), flush=True)
-    lap("serve_path")
-    for row in kernels:
-        row["service_launches_per_query"].update({
-            f"serve_path.{query}": counts["launches"][row["name"]]
-            for query, counts in serve_launches.items()
-            if row["name"] in counts["launches"]})
-    for name, arch in FAMILY_ARCHS:
-        result, family_launches = family_serve_path(name, arch, args.seed,
-                                                    tally)
+
+    def serve_phase(name: str, run) -> None:
+        """Run a serve phase, print its record and add its queries'
+        launches to the kernels line."""
+        result, per_query = run()
         print(json.dumps({name: result}), flush=True)
         lap(name)
         for row in kernels:
             row["service_launches_per_query"].update({
                 f"{name}.{query}": counts["launches"][row["name"]]
-                for query, counts in family_launches.items()
+                for query, counts in per_query.items()
                 if row["name"] in counts["launches"]})
-    result, swa_launches = swa_serve_path(args.seed, tally)
-    print(json.dumps({"swa_serve_path": result}), flush=True)
-    lap("swa_serve_path")
-    for row in kernels:
-        row["service_launches_per_query"].update({
-            f"swa_serve_path.{query}": counts["launches"][row["name"]]
-            for query, counts in swa_launches.items()
-            if row["name"] in counts["launches"]})
+
+    serve_phase("serve_path", lambda: serve_path(args.seed, tally))
+    for name, arch in FAMILY_ARCHS:
+        serve_phase(name, lambda: family_serve_path(name, arch, args.seed,
+                                                    tally))
+    serve_phase("swa_serve_path", lambda: swa_serve_path(args.seed, tally))
+    serve_phase("deepseek_serve_path", lambda: family_serve_path(
+        "deepseek_serve_path", DEEPSEEK_ARCH, args.seed, tally,
+        one_shot=True, rounds=DEEPSEEK_ROUNDS))
     K.reset_launches()
     result = train_path(args.seed)
     print(json.dumps({"train_path": result}), flush=True)
